@@ -1,2 +1,3 @@
-"""Chunked-prefill paged attention: the CUDA kernel (``csrc/``), its
-wrapper (``ops``) and the plain PyTorch version (``ref``)."""
+"""Paged attention, chunked prefill (K1) and decode (K2): the CUDA kernel
+(``csrc/``), its wrappers (``ops``) and the plain PyTorch versions
+(``ref``)."""

@@ -1,262 +1,121 @@
-// Chunked-prefill paged attention for NVIDIA Hopper (sm_90a).
+// Paged attention for NVIDIA Hopper (sm_90a): chunked prefill (K1) and
+// decode (K2), two entry points over one kernel template.
 //
-// Replaces the TPU kernel repro/kernels/paged_attention/kernel.py::
-// paged_prefill_attention_bcd (body _prefill_kernel, grid built in
-// _prefill_call). It computes the same function: for q (b, C, hq, d) and
-// pooled K/V (nb, blk, hkv, d|dv) reached through page tables (b, npages),
-// position i of row b sees key k iff
-//     k <= cache_lens[b] + i   and   k < max(cache_lens[b] + valids[b], 1),
-// with an online softmax over pages in position order, float32 math, the
-// denominator floored at 1e-30 and the output written in q's dtype.
+// K1, paged_prefill_attention, replaces the TPU kernel
+// repro/kernels/paged_attention/kernel.py::paged_prefill_attention_bcd
+// (body _prefill_kernel, grid built in _prefill_call). For q (b, C, hq, d)
+// and pooled K/V (nb, blk, hkv, d|dv) reached through page tables
+// (b, npages), position i of row b sees key k iff
+//     k <= cache_lens[b] + i   and   k < max(cache_lens[b] + valids[b], 1).
 //
-// What bounds it on the card: the bytes of the K/V pages it reads (each row
-// b walks its own pages), against 3.35 TB/s of HBM. The Pallas grid walked
-// pages as a sequential grid axis, one (b, q-head) at a time. Here one
-// block owns (row b, kv head, a tile of query rows), where the tile runs
-// over chunk positions x the g q-heads that share the kv head, and the page
-// walk is a loop inside the block: each K/V page is staged in shared memory
-// once and serves every query row of the tile, all g heads included (on
-// gemma-2b that is 8 q-heads on 1 kv head). Pages past the tile's last
-// visible position are fully masked for every row of the tile and are
-// skipped; that changes no bit of the result, because the running max is
-// already finite after page 0 (key 0 is always visible).
+// K2, paged_decode_attention, replaces repro/kernels/paged_attention/
+// kernel.py::paged_attention_bhd (body _kernel): one query per (b, q-head),
+// q (b, hq, d), over the same pools; row b sees keys k < lens[b]. That is
+// K1 with C = 1 at position lens[b] - 1, read straight from lens, so the
+// legacy decode loop needs no valids vector and a row with lens 0 sees no
+// key (it writes zeros, as the Pallas kernel does).
 //
-// One warp owns one query row. Each lane holds d/32 elements of q and dv/32
-// elements of the running output; dot products are warp reductions over d.
-// Masked keys are left out of p.V entirely, so a NaN in a stale pool slot
-// cannot reach the output through 0 * NaN. Pages are staged with cp.async
-// in 16-byte chunks into two shared-memory buffers, so the copy of page j+1
-// runs while page j is computed (rows of d and dv elements must be whole
-// 16-byte chunks; the wrapper checks).
+// Both are the walk of ../../csrc/attention_walk.cuh (the design and what
+// bounds it are described there), with one page as the key tile. A block
+// owns (row b, kv head, a tile of query rows over chunk positions x the g
+// q-heads sharing that kv head). Pages past the tile's last visible
+// position are skipped; that changes no bit of the result, because the
+// running max is finite after the first visible key.
 //
 // Plain C interface (loaded with ctypes); launches on the caller's stream
 // and returns cudaGetLastError() so a refused launch is reported.
 
-#include <cuda_bf16.h>
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
+#include "../../csrc/attention_walk.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxPerLane = 8;   // d, dv <= 256
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Queue the async copy of one (blk, d) K page and (blk, dv) V page into
-// shared memory. Row t of the page sits hkv heads apart in the pool.
-template <typename T>
-__device__ __forceinline__ void stage_page(T* k_dst, T* v_dst,
-                                           const T* kp, const T* vp,
-                                           int blk, int hkv, int d, int dv) {
-  const int kc = d * (int)sizeof(T) / 16;  // 16-byte chunks per row
-  const int vc = dv * (int)sizeof(T) / 16;
-  for (int x = threadIdx.x; x < blk * kc; x += kThreads) {
-    const int t = x / kc;
-    __pipeline_memcpy_async(
-        reinterpret_cast<char*>(k_dst) + (size_t)x * 16,
-        reinterpret_cast<const char*>(kp + (size_t)t * hkv * d) +
-            (x - t * kc) * 16,
-        16);
-  }
-  for (int x = threadIdx.x; x < blk * vc; x += kThreads) {
-    const int t = x / vc;
-    __pipeline_memcpy_async(
-        reinterpret_cast<char*>(v_dst) + (size_t)x * 16,
-        reinterpret_cast<const char*>(vp + (size_t)t * hkv * dv) +
-            (x - t * vc) * 16,
-        16);
-  }
-  __pipeline_commit();
-}
+using attn::kThreads;
+using attn::kWarps;
 
 // BLK (the pool's block size) is a template constant so the per-key loops
-// unroll without guards and the 16 warp reductions of a page interleave.
-template <typename T, int BLK>
+// unroll without guards and the warp reductions of a page interleave.
+// DECODE: lens_a holds lens (one query at lens - 1); otherwise lens_a holds
+// cache_lens and valids the rows' real widths.
+template <typename T, int BLK, bool DECODE>
 __global__ void __launch_bounds__(kThreads)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                     const T* __restrict__ v_pool,
-                     const int* __restrict__ cache_lens,
-                     const int* __restrict__ valids,
-                     const int* __restrict__ page_tables,
-                     T* __restrict__ out, int C, int hq, int hkv, int d,
-                     int dv, int npages, float scale, int g_major) {
-  constexpr int blk = BLK;
-  // two buffers, each a (blk, d) K page followed by a (blk, dv) V page
+paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
+             const T* __restrict__ v_pool, const int* __restrict__ lens_a,
+             const int* __restrict__ valids,
+             const int* __restrict__ page_tables, T* __restrict__ out,
+             int C, int hq, int hkv, int d, int dv, int npages, float scale,
+             int g_major) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const smem = reinterpret_cast<T*>(smem_raw);
-  const int buf_elems = blk * (d + dv);
-
   const int b = blockIdx.z;
   const int kvh = blockIdx.y;
   const int g = hq / hkv;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   const int rows = C * g;
   const int tile0 = blockIdx.x * kWarps;
-  const int r = tile0 + warp;
-  const bool active = r < rows;       // warp-uniform
+  const int r = tile0 + (threadIdx.x >> 5);
   const int i = r / g;                // chunk position
   const int gi = r - i * g;           // head within the kv group
   const int h = g_major ? gi * hkv + kvh : kvh * g + gi;
 
-  const int off = cache_lens[b];
-  const int kv_len = max(off + valids[b], 1);
-  const int qpos = off + i;
+  int off, kv_len;
+  if (DECODE) {
+    kv_len = lens_a[b];
+    off = kv_len - 1;
+  } else {
+    off = lens_a[b];
+    kv_len = max(off + valids[b], 1);
+  }
   const int last_row = min(tile0 + kWarps, rows) - 1;
   const int kv_hi = min(kv_len, off + last_row / g + 1);
-  const int n_pages = min(npages, (kv_hi + blk - 1) / blk);
-
-  float qr[kMaxPerLane];
-  float acc[kMaxPerLane];
-  const T* qrow = q + ((size_t)(b * C + i) * hq + h) * d;
-#pragma unroll
-  for (int u = 0; u < kMaxPerLane; ++u) {
-    const int e = lane + 32 * u;
-    qr[u] = (active && e < d) ? to_float(qrow[e]) : 0.f;
-    acc[u] = 0.f;
-  }
-  float m = kNegInf;
-  float l = 0.f;
+  const int n_pages = min(npages, max(kv_hi + BLK - 1, 0) / BLK);
 
   const int* pt = page_tables + (size_t)b * npages;
   // pool element (bid, t, kvh, e) sits at ((bid * blk + t) * hkv + kvh) * d
-  auto stage = [&](int j, T* dst) {
-    const size_t base = (size_t)pt[j] * blk * hkv + kvh;
-    stage_page(dst, dst + blk * d, k_pool + base * d, v_pool + base * dv,
-               blk, hkv, d, dv);
+  auto page = [&](int j, const T*& kp, const T*& vp, int& n) {
+    const size_t base = (size_t)pt[j] * BLK * hkv + kvh;
+    kp = k_pool + base * d;
+    vp = v_pool + base * dv;
+    n = BLK;
   };
-  stage(0, smem);
-  for (int j = 0; j < n_pages; ++j) {
-    const T* k_s = smem + (j & 1) * buf_elems;
-    const T* v_s = k_s + blk * d;
-    if (j + 1 < n_pages) {
-      stage(j + 1, smem + ((j + 1) & 1) * buf_elems);
-      __pipeline_wait_prior(1);  // page j has landed, j+1 may be in flight
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-
-    if (active) {
-      float s[BLK];
-#pragma unroll
-      for (int t = 0; t < BLK; ++t) {
-        float part = 0.f;
-#pragma unroll
-        for (int u = 0; u < kMaxPerLane; ++u) {
-          const int e = lane + 32 * u;
-          if (e < d) part += qr[u] * to_float(k_s[t * d + e]);
-        }
-        s[t] = part;
-      }
-      float m_page = kNegInf;
-#pragma unroll
-      for (int t = 0; t < BLK; ++t) {
-        const float dot = warp_sum(s[t]) * scale;
-        const int kpos = j * BLK + t;
-        s[t] = (kpos <= qpos && kpos < kv_len) ? dot : kNegInf;
-        m_page = fmaxf(m_page, s[t]);
-      }
-      const float m_new = fmaxf(m, m_page);
-      const float corr = expf(m - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int t = 0; t < BLK; ++t) {
-        s[t] = expf(s[t] - m_new);
-        psum += s[t];
-      }
-      l = l * corr + psum;
-#pragma unroll
-      for (int u = 0; u < kMaxPerLane; ++u) acc[u] *= corr;
-#pragma unroll
-      for (int t = 0; t < BLK; ++t) {
-        const int kpos = j * BLK + t;
-        if (kpos <= qpos && kpos < kv_len) {
-#pragma unroll
-          for (int u = 0; u < kMaxPerLane; ++u) {
-            const int e = lane + 32 * u;
-            if (e < dv) acc[u] += s[t] * to_float(v_s[t * dv + e]);
-          }
-        }
-      }
-      m = m_new;
-    }
-    __syncthreads();
-  }
-
-  if (active) {
-    const float denom = fmaxf(l, 1e-30f);
-    T* orow = out + ((size_t)(b * C + i) * hq + h) * dv;
-#pragma unroll
-    for (int u = 0; u < kMaxPerLane; ++u) {
-      const int e = lane + 32 * u;
-      if (e < dv) orow[e] = from_float<T>(acc[u] / denom);
-    }
-  }
+  const size_t row = (size_t)(b * C + i) * hq + h;
+  attn::attend<T, BLK>(q + row * d, out + row * dv, r < rows, off + i,
+                       kv_len, n_pages, hkv * d, hkv * dv, d, dv, scale,
+                       page, reinterpret_cast<T*>(smem_raw));
 }
 
-template <typename T, int BLK>
+template <typename T, int BLK, bool DECODE>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
-                   const int* cache_lens, const int* valids,
+                   const int* lens_a, const int* valids,
                    const int* page_tables, void* out, int b, int C, int hq,
                    int hkv, int d, int dv, int npages, float scale,
                    int g_major, cudaStream_t stream) {
   const int g = hq / hkv;
   const dim3 grid((C * g + kWarps - 1) / kWarps, hkv, b);
   const size_t smem = 2 * (size_t)BLK * (d + dv) * sizeof(T);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_prefill_kernel<T, BLK>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  paged_prefill_kernel<T, BLK><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), cache_lens, valids, page_tables,
-      static_cast<T*>(out), C, hq, hkv, d, dv, npages, scale, g_major);
-  return cudaGetLastError();
+  return attn::launch(paged_kernel<T, BLK, DECODE>, grid, smem, stream,
+                      static_cast<const T*>(q), static_cast<const T*>(k_pool),
+                      static_cast<const T*>(v_pool), lens_a, valids,
+                      page_tables, static_cast<T*>(out), C, hq, hkv, d, dv,
+                      npages, scale, g_major);
 }
 
-template <typename T>
-cudaError_t launch_blk(int blk, const void* q, const void* k_pool,
-                       const void* v_pool, const int* cache_lens,
-                       const int* valids, const int* page_tables, void* out,
-                       int b, int C, int hq, int hkv, int d, int dv,
-                       int npages, float scale, int g_major,
-                       cudaStream_t stream) {
-  switch (blk) {
-    case 8:
-      return launch<T, 8>(q, k_pool, v_pool, cache_lens, valids, page_tables,
-                          out, b, C, hq, hkv, d, dv, npages, scale, g_major,
-                          stream);
-    case 16:
-      return launch<T, 16>(q, k_pool, v_pool, cache_lens, valids,
-                           page_tables, out, b, C, hq, hkv, d, dv, npages,
-                           scale, g_major, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <bool DECODE>
+cudaError_t dispatch(int dtype, int blk, const void* q, const void* k_pool,
+                     const void* v_pool, const void* lens_a,
+                     const void* valids, const void* page_tables, void* out,
+                     int b, int C, int hq, int hkv, int d, int dv, int npages,
+                     float scale, int g_major, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* la = static_cast<const int*>(lens_a);
+  const int* va = static_cast<const int*>(valids);
+  const int* pt = static_cast<const int*>(page_tables);
+#define PAGED_LAUNCH(T, BLK)                                                 \
+  return launch<T, BLK, DECODE>(q, k_pool, v_pool, la, va, pt, out, b, C,    \
+                                hq, hkv, d, dv, npages, scale, g_major, st)
+  if (dtype == 0 && blk == 8) PAGED_LAUNCH(float, 8);
+  if (dtype == 0 && blk == 16) PAGED_LAUNCH(float, 16);
+  if (dtype == 1 && blk == 8) PAGED_LAUNCH(__nv_bfloat16, 8);
+  if (dtype == 1 && blk == 16) PAGED_LAUNCH(__nv_bfloat16, 16);
+#undef PAGED_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -264,26 +123,24 @@ cudaError_t launch_blk(int blk, const void* q, const void* k_pool,
 // dtype: 0 = float32, 1 = bfloat16. Sizes are checked by the caller:
 // hq % hkv == 0, d and dv <= 256 and rows of whole 16-byte chunks, pools
 // 16-byte aligned, blk in {8, 16}, b, C, npages >= 1, every page table
-// entry a valid block id. Returns a cudaError_t as int (0 = success).
+// entry a valid block id. Each returns a cudaError_t as int (0 = success).
 extern "C" int paged_prefill_attention(
     int dtype, const void* q, const void* k_pool, const void* v_pool,
     const void* cache_lens, const void* valids, const void* page_tables,
     void* out, int b, int C, int hq, int hkv, int d, int dv, int blk,
     int npages, float scale, int g_major, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* cl = static_cast<const int*>(cache_lens);
-  const int* va = static_cast<const int*>(valids);
-  const int* pt = static_cast<const int*>(page_tables);
-  cudaError_t e;
-  if (dtype == 0) {
-    e = launch_blk<float>(blk, q, k_pool, v_pool, cl, va, pt, out, b, C, hq,
-                          hkv, d, dv, npages, scale, g_major, st);
-  } else if (dtype == 1) {
-    e = launch_blk<__nv_bfloat16>(blk, q, k_pool, v_pool, cl, va, pt, out, b,
-                                  C, hq, hkv, d, dv, npages, scale, g_major,
-                                  st);
-  } else {
-    e = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(e);
+  return static_cast<int>(dispatch<false>(
+      dtype, blk, q, k_pool, v_pool, cache_lens, valids, page_tables, out, b,
+      C, hq, hkv, d, dv, npages, scale, g_major, stream));
+}
+
+// q (b, hq, d), out (b, hq, dv), lens (b,) int32 keys visible per row.
+extern "C" int paged_decode_attention(
+    int dtype, const void* q, const void* k_pool, const void* v_pool,
+    const void* lens, const void* page_tables, void* out, int b, int hq,
+    int hkv, int d, int dv, int blk, int npages, float scale, int g_major,
+    void* stream) {
+  return static_cast<int>(dispatch<true>(
+      dtype, blk, q, k_pool, v_pool, lens, nullptr, page_tables, out, b, 1,
+      hq, hkv, d, dv, npages, scale, g_major, stream));
 }

@@ -1,10 +1,12 @@
-"""Wrappers for chunked-prefill paged attention.
+"""Wrappers for paged attention: chunked prefill (K1) and decode (K2).
 
 ``paged_prefill_attention`` is the function the megastep calls in every
-layer. On CUDA tensors it launches the hand-written kernel in
-``csrc/paged_prefill_attention.cu`` (built with nvcc at first use) or
-raises; it never falls back. On CPU tensors it runs the plain version in
-``ref``. Each launch adds one to ``paged_prefill_attention.launches``.
+layer, and the legacy loop in every prefill chunk; ``paged_attention`` is
+the legacy loop's decode. On CUDA tensors each launches its entry point of
+the hand-written kernel in ``csrc/paged_prefill_attention.cu`` (built with
+nvcc at first use) or raises; neither falls back. On CPU tensors each runs
+its plain version in ``ref``. Each launch adds one to the wrapper's own
+``launches`` count.
 
 ``paged_prefill_attention_contig`` is the gathered-view twin (the reference's
 ``paged_prefill_attention_contig``): the same kernel over a contiguous
@@ -14,102 +16,53 @@ walk apart from float associativity.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.paged_attention.ref import paged_prefill_attention_ref
+from repro_torch.kernels import launch
+from repro_torch.kernels.paged_attention.ref import (
+    paged_attention_ref, paged_prefill_attention_ref)
 
 SOURCE = (Path(__file__).resolve().parent / "csrc"
           / "paged_prefill_attention.cu")
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 256
 BLOCK_SIZES = (8, 16)      # the kernel's instantiations of the page size
-_PAIRINGS = {"kv_major": 0, "g_major": 1}
+# C entry point -> (pointers, ints before scale, ints after scale)
+_SIGNATURES = {"paged_prefill_attention": (7, 8, 1),
+               "paged_decode_attention": (6, 7, 1)}
+_fns: dict = {}
 
 
-def load_kernel():
-    """Build (if needed) and load the kernel; returns its C function with
-    the ctypes signature set, so pointers and the stream pass as 64-bit
-    values. The handle is kept after the first call: resolving the library
-    again costs more host time than a launch."""
-    if load_kernel.fn is None:
-        fn = build.load(SOURCE).paged_prefill_attention
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
-                       + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        load_kernel.fn = fn
-    return load_kernel.fn
+def load_kernel(name: str = "paged_prefill_attention"):
+    """Build (if needed) and load the kernel; returns the C entry point
+    ``name`` with its ctypes signature set. The handle is kept after the
+    first call: resolving the library again costs more host time than a
+    launch."""
+    if name not in _fns:
+        _fns[name] = launch.bind(SOURCE, name, *_SIGNATURES[name])
+    return _fns[name]
 
 
-load_kernel.fn = None
-
-
-def _launch(q, k_pool, v_pool, cache_lens, valids, page_tables, scale,
-            pairing):
-    b, C, hq, d = q.shape
-    nb, blk, hkv, dk = k_pool.shape
+def _check_pools(q, k_pool, v_pool, page_tables, ints: dict):
+    b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
+    blk, hkv, dk = k_pool.shape[1:]
     dv = v_pool.shape[-1]
-    npages = page_tables.shape[-1]
-    dev = q.device
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("cache_lens", cache_lens), ("valids", valids),
-                    ("page_tables", page_tables)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, q on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if not q.is_contiguous():
-        raise ValueError("q must be contiguous")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"q dtype {q.dtype} not supported "
-                        f"(kernel takes {sorted(map(str, _DTYPE_CODES))})")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError("k_pool, v_pool and q must share one dtype")
-    for name, t in (("cache_lens", cache_lens), ("valids", valids),
-                    ("page_tables", page_tables)):
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    launch.check_inputs({"q": q, "k_pool": k_pool, "v_pool": v_pool},
+                        {**ints, "page_tables": page_tables})
     if dk != d or v_pool.shape[:3] != k_pool.shape[:3]:
         raise ValueError(f"pool shapes {tuple(k_pool.shape)} / "
                          f"{tuple(v_pool.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if hq % hkv:
-        raise ValueError(f"hq {hq} is not a multiple of hkv {hkv}")
-    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
-        raise ValueError(f"head dims {d}/{dv} exceed {MAX_HEAD_DIM}")
+    launch.check_heads(hq, hkv, d, dv, k_pool, v_pool)
     if blk not in BLOCK_SIZES:
         raise ValueError(f"block size {blk} not in {BLOCK_SIZES}")
-    # pages are copied in 16-byte chunks: whole chunks per row, aligned
-    es = q.element_size()
-    if (d * es) % 16 or (dv * es) % 16 \
-            or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("pool rows must be whole, aligned 16-byte chunks "
-                         f"(d={d}, dv={dv}, {es}-byte elements)")
-    if cache_lens.shape != (b,) or valids.shape != (b,) \
-            or page_tables.shape != (b, npages) or npages < 1:
-        raise ValueError("cache_lens/valids must be (b,) and page_tables "
+    if any(t.shape != (b,) for t in ints.values()) \
+            or page_tables.ndim != 2 or page_tables.shape[0] != b \
+            or page_tables.shape[1] < 1:
+        raise ValueError(f"{'/'.join(ints)} must be (b,) and page_tables "
                          "(b, npages >= 1)")
-    out = torch.empty((b, C, hq, dv), dtype=q.dtype, device=dev)
-    if b == 0 or C == 0:
-        return out
-    kernel = load_kernel()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = kernel(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-            v_pool.data_ptr(), cache_lens.data_ptr(), valids.data_ptr(),
-            page_tables.data_ptr(), out.data_ptr(), b, C, hq, hkv, d, dv,
-            blk, npages, float(scale), _PAIRINGS[pairing], stream)
-    if err != 0:
-        raise RuntimeError(f"paged_prefill_attention kernel launch failed: "
-                           f"cudaError {err}")
-    paged_prefill_attention.launches += 1
-    return out
+    return b, hq, hkv, d, dv, blk, page_tables.shape[1]
 
 
 def paged_prefill_attention(q, k_pool, v_pool, cache_lens, valids,
@@ -122,20 +75,64 @@ def paged_prefill_attention(q, k_pool, v_pool, cache_lens, valids,
     ``ref.paged_prefill_attention_ref``. Returns (b, C, hq, dv) in q's
     dtype. CUDA tensors launch the kernel, CPU tensors take the plain
     version."""
-    if pairing not in _PAIRINGS:
-        raise ValueError(f"pairing {pairing!r} not in {sorted(_PAIRINGS)}")
+    launch.check_pairing(pairing)
     if q.device.type == "cpu":
         return paged_prefill_attention_ref(q, k_pool, v_pool, cache_lens,
                                            valids, page_tables, scale=scale,
                                            pairing=pairing)
     if q.device.type != "cuda":
         raise ValueError(f"no paged attention for device {q.device}")
-    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    return _launch(q, k_pool, v_pool, cache_lens, valids, page_tables,
-                   scale, pairing)
+    b, hq, hkv, d, dv, blk, npages = _check_pools(
+        q, k_pool, v_pool, page_tables,
+        {"cache_lens": cache_lens, "valids": valids})
+    C = q.shape[1]
+    out = torch.empty((b, C, hq, dv), dtype=q.dtype, device=q.device)
+    if b == 0 or C == 0:
+        return out
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    launch.run(load_kernel(), "paged_prefill_attention", q.device, q.dtype,
+               q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+               cache_lens.data_ptr(), valids.data_ptr(),
+               page_tables.data_ptr(), out.data_ptr(), b, C, hq, hkv, d, dv,
+               blk, npages, float(scale), launch.PAIRINGS[pairing])
+    paged_prefill_attention.launches += 1
+    return out
 
 
 paged_prefill_attention.launches = 0
+
+
+def paged_attention(q, k_pool, v_pool, lens, page_tables, *, scale=None,
+                    pairing: str = "kv_major"):
+    """Paged decode. q: (b, 1, hq, d), one query per row; pools as for
+    ``paged_prefill_attention``; lens: (b,) int32, row b sees keys
+    ``< lens[b]``. Returns (b, 1, hq, dv) in q's dtype. CUDA tensors launch
+    the kernel (K2), CPU tensors take the plain version."""
+    launch.check_pairing(pairing)
+    if q.device.type == "cpu":
+        return paged_attention_ref(q[:, 0], k_pool, v_pool, lens,
+                                   page_tables, scale=scale,
+                                   pairing=pairing)[:, None]
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged attention for device {q.device}")
+    if q.ndim != 4 or q.shape[1] != 1:
+        raise ValueError(f"q must be (b, 1, hq, d), got {tuple(q.shape)}")
+    b, hq, hkv, d, dv, blk, npages = _check_pools(
+        q, k_pool, v_pool, page_tables, {"lens": lens})
+    out = torch.empty((b, 1, hq, dv), dtype=q.dtype, device=q.device)
+    if b == 0:
+        return out
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    launch.run(load_kernel("paged_decode_attention"), "paged_attention",
+               q.device, q.dtype, q.data_ptr(), k_pool.data_ptr(),
+               v_pool.data_ptr(), lens.data_ptr(), page_tables.data_ptr(),
+               out.data_ptr(), b, hq, hkv, d, dv, blk, npages, float(scale),
+               launch.PAIRINGS[pairing])
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0
 
 
 def paged_prefill_attention_contig(q, k_contig, v_contig, cache_lens, valids,

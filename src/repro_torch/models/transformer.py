@@ -1,10 +1,18 @@
-"""Decoder-only LM for the paged megastep (dense GQA family).
+"""Decoder-only LM, dense GQA family: the port of
+``repro.models.transformer``, run eagerly.
 
-``mixed_step_paged`` is the port's megastep forward: one call advances the
-whole mixed batch one engine iteration, as the reference's jitted
-``repro.models.transformer.mixed_step_paged`` does, but eagerly. Params are
-the prepared dict of ``repro_torch.weights`` (compute dtype, layers as a
-list); pools are device tensors updated in place.
+  * ``forward`` — logits over a full sequence (teacher forcing);
+  * ``init_decode_state`` / ``prefill`` / ``decode_step`` — the contiguous
+    KV cache of the lockstep decode and the dense slot engine;
+  * ``init_paged_pools`` / ``decode_step_paged`` / ``prefill_chunk_paged``
+    — the legacy paged loop;
+  * ``mixed_step_paged`` — the megastep: one call advances the whole mixed
+    batch one engine iteration.
+
+Params are the prepared dict of ``repro_torch.weights`` (compute dtype,
+layers as a list). Caches and pools are device tensors updated in place,
+where the reference returns new donated buffers; the functions return only
+their logits or ids.
 """
 from __future__ import annotations
 
@@ -79,6 +87,114 @@ def _unembed(params, h):
     return h.float() @ params["unembed"]
 
 
+def _mlp(lp, x, cfg: ModelConfig):
+    return apply_mlp(lp["mlp"], rms_norm(x, lp["mlp_norm"], cfg.norm_eps),
+                     cfg.act)
+
+
+# ------------------------------------------------------------ full forward
+
+def _layer_full(x, lp, cfg: ModelConfig, return_kv=False):
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    a, kv = (attn_mod.gqa_full(lp["attn"], h, cfg, return_kv=True)
+             if return_kv else (attn_mod.gqa_full(lp["attn"], h, cfg), None))
+    x = x + a
+    return x + _mlp(lp, x, cfg), kv
+
+
+def forward(params, tokens, cfg: ModelConfig):
+    """tokens: (b, s) int -> logits (b, s, V) float32, every position."""
+    x = _embed(params, tokens, cfg)
+    for lp in params["layers"]:
+        x, _ = _layer_full(x, lp, cfg)
+    return _unembed(params, rms_norm(x, params["final_norm"], cfg.norm_eps))
+
+
+# ------------------------------------------------------------------ decode
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      device="cuda") -> Dict[str, torch.Tensor]:
+    """Zeroed contiguous KV cache: ``k``/``v`` of shape
+    (L, batch, max_len, hkv, hd) in the KV cache dtype."""
+    _check_supported(cfg)
+    ct = torch_dtype(cfg.kv_cache_dtype or cfg.compute_dtype)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=ct, device=dev),
+            "v": torch.zeros(shape, dtype=ct, device=dev)}
+
+
+def _fill(cache, new):
+    """Write prefill K/V (b, s, hkv, hd) into positions 0.. of one layer's
+    cache, in place."""
+    cache[:, :new.shape[1]] = new.to(cache.dtype)
+
+
+def prefill(params, tokens, cfg: ModelConfig, *, state: Dict):
+    """Full-sequence prefill. tokens: (b, s) -> the last position's logits
+    (b, 1, V) float32; each layer's K/V is written into positions [0, s)
+    of ``state`` (the dict of ``init_decode_state``, or views of one), in
+    place."""
+    x = _embed(params, tokens, cfg)
+    for li, lp in enumerate(params["layers"]):
+        x, (k, v) = _layer_full(x, lp, cfg, return_kv=True)
+        _fill(state["k"][li], k)
+        _fill(state["v"][li], v)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _unembed(params, x[:, -1:])
+
+
+def _layer_decode(lp, x, k_cache, v_cache, cache_len, cfg: ModelConfig):
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    x = x + attn_mod.gqa_decode(lp["attn"], h, k_cache, v_cache, cache_len,
+                                cfg)
+    return x + _mlp(lp, x, cfg)
+
+
+def decode_step(params, state: Dict, token, cache_len, cfg: ModelConfig):
+    """token (b, 1) -> logits (b, 1, V) float32; ``state`` is updated in
+    place. cache_len: an int (every row at one depth: the lockstep decode)
+    or a (b,) int32 tensor (per-slot depths)."""
+    x = _embed(params, token, cfg)
+    for li, lp in enumerate(params["layers"]):
+        x = _layer_decode(lp, x, state["k"][li], state["v"][li], cache_len,
+                          cfg)
+    return _unembed(params, rms_norm(x, params["final_norm"], cfg.norm_eps))
+
+
+def decode_step_paged(params, pools: Dict, token, cache_len, page_tables,
+                      cfg: ModelConfig):
+    """Paged analogue of ``decode_step``: token (b, 1) int32, cache_len (b,)
+    int32 lengths before this token, page_tables (b, npages) int32; pools
+    written in place. Returns logits (b, 1, V) float32."""
+    x = _embed(params, token, cfg)
+    for li, lp in enumerate(params["layers"]):
+        hh = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        x = x + attn_mod.gqa_decode_paged(
+            lp["attn"], hh, pools["k"][li], pools["v"][li], page_tables,
+            cache_len, cfg)
+        x = x + _mlp(lp, x, cfg)
+    return _unembed(params, rms_norm(x, params["final_norm"], cfg.norm_eps))
+
+
+def prefill_chunk_paged(params, pools: Dict, tokens, cache_len: int,
+                        valid: int, page_table, cfg: ModelConfig):
+    """Chunked prefill of one sequence over the paged pools: tokens (1, C)
+    int32, null-padded past ``valid``; cache_len: the tokens resident
+    before the chunk; page_table (npages,) int32. The chunk's K/V is
+    written into the sequence's pages in place. Returns logits (1, C, V)
+    float32 (the caller reads position ``valid - 1``)."""
+    x = _embed(params, tokens, cfg)
+    for li, lp in enumerate(params["layers"]):
+        hh = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        x = x + attn_mod.gqa_prefill_chunk_paged(
+            lp["attn"], hh, pools["k"][li], pools["v"][li], page_table,
+            cache_len, valid, cfg)
+        x = x + _mlp(lp, x, cfg)
+    return _unembed(params, rms_norm(x, params["final_norm"], cfg.norm_eps))
+
+
 def mixed_step_paged(params, pools: Dict, tokens, cache_lens, valids,
                      page_tables, cfg: ModelConfig, poison_mask=None):
     """tokens: (B, C) int32, row b carrying ``valids[b]`` real tokens
@@ -94,8 +210,7 @@ def mixed_step_paged(params, pools: Dict, tokens, cache_lens, valids,
         x = x + attn_mod.gqa_mixed_step_paged(
             lp["attn"], hh, pools["k"][li], pools["v"][li], page_tables,
             cache_lens, valids, cfg)
-        hh = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + apply_mlp(lp["mlp"], hh, cfg.act)
+        x = x + _mlp(lp, x, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     rows = torch.arange(x.shape[0], device=x.device)
     last = torch.clamp(valids.long() - 1, 0, x.shape[1] - 1)

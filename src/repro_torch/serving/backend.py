@@ -1,17 +1,24 @@
-"""Engine adapter for the AgentRM middleware (the port's slice of
-``repro.serving.backend``).
+"""JAX engine adapters for the AgentRM middleware.
 
-``PagedEngineBackend`` implements the middleware's **iteration-level**
-``SteppableBackend`` contract (submit/poll sessions, one ``step()`` over the
-whole decode batch) so the fused MLFQ dispatcher — not a thread pool — owns
-the inference loop. One retained paged session per agent: first turn
-prefills (chunked), later turns ``extend`` the session, preemption parks it
-in place, hibernation swaps its pages. Under the engine's megastep an
-iteration is ONE ``mixed_step_paged`` call, so the whole ``StepReport`` is
-accounted from a single model call per scheduling pass.
+``PagedEngineBackend`` is the production adapter: it implements the
+middleware's **iteration-level** ``SteppableBackend`` contract (submit/poll
+sessions, one ``step()`` over the whole decode batch) so the fused MLFQ
+dispatcher — not a thread pool — owns the inference loop. One retained paged
+session per agent: first turn prefills (chunked), later turns ``extend`` the
+session, preemption parks it in place, hibernation swaps its pages. Under
+the engine's megastep an iteration is ONE jitted dispatch, so the whole
+``StepReport`` — per-rid token service for MLFQ charging, finished turns,
+per-sequence OOM casualties — is accounted from a single model call per
+scheduling pass.
 
-The reference's ``SerializedPagedBackend`` (benchmark baseline) and
-``EngineBackend`` (dense engine) belong to later slices of the port.
+``SerializedPagedBackend`` is the same engine behind the legacy turn-level
+``generate`` contract: a backend-wide lock held for the whole decode loop,
+so turns serialize through an engine built for continuous batching. It
+exists as the *baseline* the live scheduling benchmark measures the fused
+dispatcher against (and as the reference for the old reap-mid-decode
+semantics).
+
+``EngineBackend`` adapts the dense slot engine the same turn-level way.
 """
 from __future__ import annotations
 
@@ -21,10 +28,13 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from repro_torch.core.middleware import StepReport, SteppableBackend
+from repro_torch.core.middleware import (ModelBackend, StepReport,
+                                   SteppableBackend, ZombieKilled)
+from repro_torch.serving.engine import InferenceEngine
 from repro_torch.serving.errors import EngineError, SwapIOError
 
-__all__ = ["byte_tokenize", "EngineError", "PagedEngineBackend"]
+__all__ = ["byte_tokenize", "EngineBackend", "EngineError",
+           "PagedEngineBackend", "SerializedPagedBackend"]
 
 
 def byte_tokenize(text: str, vocab: int, max_len: int = 96) -> np.ndarray:
@@ -310,3 +320,111 @@ class PagedEngineBackend(SteppableBackend):
             if resume:
                 self.engine.resume(rid)
             return rid
+
+
+class SerializedPagedBackend(ModelBackend):
+    """The pre-fusion design, kept as the benchmark baseline: persistent
+    paged sessions, but ``generate`` holds a backend-wide lock for the whole
+    decode loop — one turn decodes at a time no matter how wide the engine's
+    batch is. The middleware runs it on the threaded lane pool. Takes the
+    same workload knobs (``prompt_tokens``, ``new_tokens_jitter``) as
+    ``PagedEngineBackend`` so baseline comparisons run identical traffic."""
+
+    def __init__(self, engine, max_new_tokens: int = 12,
+                 prompt_tokens: int = 0, new_tokens_jitter: int = 0):
+        self.engine = engine
+        self.max_new_tokens = max_new_tokens
+        self.prompt_tokens = prompt_tokens or PagedEngineBackend.PROMPT_TOKENS
+        self.new_tokens_jitter = new_tokens_jitter
+        self.sessions: dict = {}            # agent_id -> rid
+        self._lock = threading.Lock()
+
+    @property
+    def obs(self):
+        return self.engine.obs
+
+    def generate(self, agent_id: str, context: str, prompt: str,
+                 heartbeat: Callable[[], None],
+                 cancelled: threading.Event) -> str:
+        toks = byte_tokenize(prompt, self.engine.cfg.vocab_size,
+                             max_len=self.prompt_tokens)
+        n_new = _jittered_new_tokens(self.max_new_tokens,
+                                     self.new_tokens_jitter, agent_id)
+        with self._lock:
+            rid = self.sessions.get(agent_id)
+            if rid is None or rid not in self.engine.reqs:
+                rid = self.engine.submit(toks, n_new, retain=True)
+                self.sessions[agent_id] = rid
+            else:
+                self.engine.extend(rid, toks, n_new)
+            out = None
+            try:
+                for _ in range(len(toks) + n_new + 8):
+                    if cancelled.is_set():
+                        raise ZombieKilled(
+                            f"turn for {agent_id} reaped mid-decode")
+                    heartbeat()
+                    for fin in self.engine.step():
+                        if fin.rid == rid:
+                            out = fin
+                    if out is not None:
+                        break
+            except BaseException:
+                # leave the session consistent (parked) so the agent's next
+                # turn can extend it; a never-prefilled session is dropped
+                self.engine.abort_turn(rid)
+                if rid not in self.engine.reqs:
+                    self.sessions.pop(agent_id, None)
+                raise
+            if out is None:
+                self.engine.abort_turn(rid)
+                raise EngineError(
+                    f"paged engine failed to finish turn for {agent_id} "
+                    f"(rid {rid})")
+        return "tok:" + ",".join(str(t) for t in out.out_tokens)
+
+    # ------------------------------------------- hibernation contract
+    def hibernate_session(self, agent_id: str):
+        with self._lock:
+            rid = self.sessions.get(agent_id)
+            if rid is not None:
+                self.engine.hibernate(rid)
+
+    def wake_session(self, agent_id: str):
+        with self._lock:
+            rid = self.sessions.get(agent_id)
+            if rid is not None:
+                self.engine.wake(rid)
+
+
+class EngineBackend(ModelBackend):
+    """Serialises middleware turns through a shared dense engine instance.
+    One decode step per heartbeat: a stall in XLA shows up as heartbeat
+    silence, which is exactly what the reaper watches."""
+
+    def __init__(self, engine: InferenceEngine, max_new_tokens: int = 12):
+        self.engine = engine
+        self.max_new_tokens = max_new_tokens
+        self._lock = threading.Lock()
+
+    def generate(self, agent_id: str, context: str, prompt: str,
+                 heartbeat: Callable[[], None],
+                 cancelled: threading.Event) -> str:
+        toks = byte_tokenize(context[-256:] + "\n" + prompt,
+                             self.engine.cfg.vocab_size)
+        with self._lock:
+            rid = self.engine.submit(toks, max_new_tokens=self.max_new_tokens)
+            out = None
+            for _ in range(self.max_new_tokens + 4):
+                if cancelled.is_set():
+                    raise ZombieKilled(f"turn for {agent_id} reaped mid-decode")
+                heartbeat()
+                for fin in self.engine.step():
+                    if fin.rid == rid:
+                        out = fin
+                if out is not None:
+                    break
+        if out is None:
+            raise EngineError(f"dense engine failed to finish request "
+                              f"for {agent_id} (rid {rid})")
+        return "tok:" + ",".join(str(t) for t in out.out_tokens)

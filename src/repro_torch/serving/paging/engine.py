@@ -18,9 +18,12 @@ The port of ``repro.serving.paging.engine`` on its megastep path:
     ``export_live``/``import_live`` payloads in the reference's layout.
 
 The megastep runs eagerly; on CUDA tensors every layer's attention is the
-hand-written Hopper kernel. The reference's legacy per-sequence loop
-(``megastep=False``, kernel K2) and its tensor-parallel mesh are later
-slices of the port and raise ``NotImplementedError`` here.
+hand-written Hopper kernel. ``megastep=False`` keeps the reference's
+legacy loop as the benchmark baseline: one ``prefill_chunk_paged`` call per
+prefilling sequence plus one batched ``decode_step_paged`` call per step,
+with the full (max_batch, vocab) float32 logits crossing to the host and
+sampled there. The reference's tensor-parallel mesh is a later slice of
+the port and raises ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -123,10 +126,6 @@ class PagedInferenceEngine:
                  obs: Optional[Observability] = None,
                  name: str = "engine",
                  device="cuda"):
-        if not megastep:
-            raise NotImplementedError(
-                "megastep=False (the legacy per-sequence loop, kernel K2) "
-                "is a later slice of the port")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (the tensor-parallel megastep) is a later slice of "
@@ -170,6 +169,11 @@ class PagedInferenceEngine:
                                 if token_budget else self.prefill_chunk)
         self.cache = PagedKVCache(cfg, num_blocks, block_size,
                                   device=self.device)
+        # megastep=True (default): ONE mixed_step_paged call per engine
+        # iteration. megastep=False keeps the legacy loop (one
+        # prefill_chunk_paged call per prefilling sequence plus a
+        # decode_step_paged call) as the benchmark baseline.
+        self.use_megastep = megastep
         self.swap = SwapManager(self.cache, swap_store,
                                 on_evict=self._on_evicted)
         self.max_pages = self.cache.pages_for(self.max_len)
@@ -241,6 +245,8 @@ class PagedInferenceEngine:
         self._ev_step = rec.name(
             "engine.megastep",
             ("C", "rows", "tokens_real", "tokens_dispatched"))
+        self._ev_legacy = rec.name("engine.step.legacy",
+                                   ("dispatches", "tokens_real"))
         self._ev_row = rec.name("row.work", ("rid", "tokens", "prefill"))
         self._ev_enq = rec.name("session.enqueued", ("rid", "pending"))
         self._ev_queued = rec.name("session.queued", ("rid",))
@@ -265,7 +271,10 @@ class PagedInferenceEngine:
         discarded, so live state is untouched, and serving never pays a
         kernel build mid-traffic. Idempotent; recorded in
         ``compiled_buckets``, not in ``trace_buckets`` (which counts only
-        widths live traffic dispatched)."""
+        widths live traffic dispatched). A no-op for the legacy loop, as in
+        the reference: its kernels build at first use."""
+        if not self.use_megastep:
+            return
         if self.device.type == "cuda":
             pa.load_kernel()
         B = self.max_batch
@@ -624,7 +633,10 @@ class PagedInferenceEngine:
         requests whose turn finished this step; per-rid service counts (in
         tokens) land in ``last_serviced``.
 
-        The whole iteration is ONE ``mixed_step_paged`` call."""
+        With ``megastep`` (the default) the whole iteration is ONE
+        ``mixed_step_paged`` call; the legacy loop (one call per
+        prefilling sequence plus a decode call) is kept as the benchmark
+        baseline."""
         self.last_serviced = {}
         self.last_failures = []
         self._admit()                 # may append swap-IO casualties
@@ -632,7 +644,10 @@ class PagedInferenceEngine:
             return []
         t0 = time.perf_counter()
         before = self._c_jit.value
-        fins = self._step_megastep(t0)
+        if self.use_megastep:
+            fins = self._step_megastep(t0)
+        else:
+            fins = self._step_legacy(t0)
         if self._c_jit.value != before:     # a work-doing iteration
             self.h_step.observe(time.perf_counter() - t0)
         return fins
@@ -949,6 +964,94 @@ class PagedInferenceEngine:
         if tracing:
             rec.complete(self._ev_step, self._tr_step, t0, C, len(rows),
                          step_real, self.max_batch * C)
+        return finished
+
+    def _step_legacy(self, t0: float = 0.0) -> List[PagedRequest]:
+        """The legacy iteration: one ``prefill_chunk_paged`` call per
+        prefilling sequence, then one batched ``decode_step_paged`` call —
+        1 + n_prefilling calls per step, the full (max_batch, vocab) float32
+        logits crossing to the host and argmaxed there."""
+        finished: List[PagedRequest] = []
+        decoding = [r for r in self.active.values() if not r.prefilling]
+        prefilling = [r for r in self.active.values() if r.prefilling]
+        dispatches_before = self.jit_dispatches
+        tokens_before = self.tokens_real
+        rec = self.obs.recorder
+        dev = self.device
+
+        # ---- chunked prefill: one block of prompt per sequence per step
+        for req in prefilling:
+            T = min(self.prefill_chunk, len(req.pending))
+            n = req.num_tokens
+            if not self._grown(req, n + T):
+                continue
+            buf = np.zeros((1, self.prefill_chunk), np.int32)
+            buf[0, :T] = req.pending[:T]
+            row = np.asarray(req.table.padded(self.max_pages), np.int32)
+            tc0 = time.perf_counter() if rec.enabled else 0.0
+            logits = self.model.prefill_chunk_paged(
+                self.params, self.cache.pools(),
+                torch.from_numpy(buf).to(dev), n, T,
+                torch.from_numpy(row).to(dev))
+            self.jit_dispatches += 1
+            self.tokens_real += T
+            self.tokens_dispatched += self.prefill_chunk
+            req.table.num_tokens = n + T
+            del req.pending[:T]
+            if rec.enabled:
+                rec.complete(self._ev_prefill, self._sess_track(req.rid),
+                             tc0, req.rid, T, req.num_tokens)
+            if req.fresh_turn:
+                # only the original prompt's write window may feed the
+                # dedup index — extend turns write non-prompt tokens
+                self.cache.register_prefix(req.prompt, req.table,
+                                           req.num_tokens)
+            self.last_serviced[req.rid] = T
+            if not req.pending:
+                row = logits[0, T - 1].cpu().numpy()
+                if req.rid in self._poison_rids or not np.isfinite(row).all():
+                    self._fail_poisoned(req)
+                else:
+                    self._finish_token(req, int(row.argmax()), finished)
+
+        # ---- decode: one token for every sequence past prefill
+        decoding = [r for r in decoding
+                    if self._grown(r, r.num_tokens + 1)]
+        if decoding:
+            lens = np.zeros((self.max_batch,), np.int32)
+            tables = np.full((self.max_batch, self.max_pages), NULL_BLOCK,
+                             np.int32)
+            toks = np.zeros((self.max_batch, 1), np.int32)
+            for req in decoding:
+                lens[req.slot] = req.num_tokens
+                tables[req.slot] = req.table.padded(self.max_pages)
+                toks[req.slot, 0] = req.last_tok
+            logits = self.model.decode_step_paged(
+                self.params, self.cache.pools(),
+                torch.from_numpy(toks).to(dev),
+                torch.from_numpy(lens).to(dev),
+                torch.from_numpy(tables).to(dev))
+            self.jit_dispatches += 1
+            self.decode_steps += 1
+            self.tokens_real += len(decoding)
+            self.tokens_dispatched += self.max_batch
+            rows_np = logits[:, 0].cpu().numpy()     # (max_batch, vocab) f32
+            out = rows_np.argmax(axis=-1)
+            row_ok = np.isfinite(rows_np).all(axis=-1)
+            for req in decoding:
+                req.table.num_tokens += 1
+                if req.rid in self._poison_rids or not row_ok[req.slot]:
+                    self._fail_poisoned(req)
+                    continue
+                self.last_serviced[req.rid] = \
+                    self.last_serviced.get(req.rid, 0) + 1
+                self._finish_token(req, int(out[req.slot]), finished)
+        dispatched = self.jit_dispatches - dispatches_before
+        if dispatched:
+            self.steps_dispatched += 1
+            if rec.enabled:
+                rec.complete(self._ev_legacy, self._tr_step, t0, dispatched,
+                             self.tokens_real - tokens_before)
         return finished
 
     def _retire(self, req: PagedRequest):

@@ -41,6 +41,21 @@ def torch_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def slot_payload_as(payload: Dict, bf16) -> Dict:
+    """An ``extract_slot`` payload ({"k", "v"} numpy arrays) with every
+    16-bit float leaf viewed as ``bf16``, bit for bit. ``np.uint16`` carries
+    a JAX ``InferenceEngine`` payload (ml_dtypes bfloat16) into the port's
+    layout; the caller's ml_dtypes ``bfloat16`` carries a port payload to
+    the JAX engine's ``restore_slot``. Float32 leaves pass unchanged."""
+    out = {}
+    for name, arr in payload.items():
+        arr = np.asarray(arr)
+        if arr.dtype.name in ("bfloat16", "uint16"):
+            arr = arr.view(bf16)
+        out[name] = arr
+    return out
+
+
 def prepare_params(raw: Dict, cfg: ModelConfig, device) -> Dict:
     """Cast raw params (any dtype/device, layers as a list of dicts) to the
     compute dtype on ``device``. Adds ``unembed``: the (d, V) output

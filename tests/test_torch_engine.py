@@ -148,8 +148,8 @@ def test_budget_validation_and_later_slices(gemma):
         eng.set_token_budget(12)            # not a bucket
     with pytest.raises(ValueError):
         _port(gemma, token_budget=2)        # below max_batch
-    with pytest.raises(NotImplementedError):
-        _port(gemma, megastep=False)
+    legacy = _port(gemma, megastep=False)   # the legacy loop is ported now
+    assert not legacy.use_megastep
     with pytest.raises(NotImplementedError):
         _port(gemma, mesh=object())
     assert teng._MIN_CHUNK_BUCKET == 8

@@ -20,7 +20,8 @@ PORT = ROOT / "src" / "repro_torch"
 REF = ROOT / "src" / "repro"
 
 VERBATIM = """configs/base.py configs/gemma_2b.py configs/chatglm3_6b.py
-configs/deepseek_67b.py serving/errors.py serving/paging/allocator.py
+configs/deepseek_67b.py serving/errors.py serving/backend.py
+serving/paging/allocator.py
 serving/paging/swap.py serving/autopilot.py obs/__init__.py obs/metrics.py
 obs/trace.py core/__init__.py core/monitor.py core/middleware.py
 core/scheduler/task.py core/scheduler/drf.py core/scheduler/policies.py
@@ -79,14 +80,20 @@ def test_engine_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present, so the default device is usable")
     from repro_torch.configs import get_smoke_config
-    from repro_torch.models.transformer import init_params
-    from repro_torch.serving import PagedInferenceEngine
+    from repro_torch.models.transformer import init_decode_state, init_params
+    from repro_torch.serving import InferenceEngine, PagedInferenceEngine
     from repro_torch.serving.paging.pool import PagedKVCache
     from repro_torch.weights import params_from_jax
     cfg = get_smoke_config("gemma-2b")
     params = init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         PagedInferenceEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        PagedInferenceEngine(cfg, params, megastep=False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        InferenceEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_decode_state(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="cuda"):
         init_params(cfg)
     with pytest.raises(RuntimeError, match="cuda"):
