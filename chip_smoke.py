@@ -7,22 +7,28 @@ Phases, each printing one JSON line (several for the kernel cases):
 
 1. device   — the card's name and power limit (nvidia-smi); fails without
               CUDA.
-2. build    — nvcc builds the port's three kernel sources into
+2. build    — nvcc builds the port's four kernel sources into
               build/kernels/, one process each, all started together.
 3. kernels  — each kernel against its plain PyTorch version on the card, in
               bf16 and f32, at the shapes its path gives it (gemma-2b heads:
-              hq=8, hkv=1, d=dv=256):
+              hq=8, hkv=1, d=dv=256; the hybrid's: hq=hkv=32, d=112):
               K1 paged chunked prefill: b=8, blk=16, C in {1, 8, 64, 256},
                  ragged valids, plus one hkv=2 case, and bit for bit against
                  its gathered-view twin;
               K2 paged decode: b=8, blk=16, histories up to ~900 tokens,
                  plus one hkv=2 case;
               K3 flash attention: b=1, sq in {33, 96, 256}, plus one hkv=2
-                 case and one dv != d case;
+                 case, one dv != d case and the hybrid's heads at sq=512;
               K4 decode over a contiguous cache: b=4 slots, S=1024, per-row
-                 lengths from 1 up, plus one scalar-length case.
+                 lengths from 1 up, plus one scalar-length case and the
+                 hybrid's ring (b=1, S=1024) at its heads;
+              K5 SSD chunked scan (bf16 within 2e-2, f32 within 1e-4):
+                 mamba2-370m heads at b=4, s=512 (two chunks), zamba2-7b
+                 heads at b=1, s=512, a ragged single chunk (s=100), two
+                 B/C groups, an initial state.
               Times the kernel, the plain version and one PyTorch library
-              call (SDPA), beside the least time the card could take.
+              call (SDPA; none computes K5), beside the least time the card
+              could take.
 4. main     — full-width gemma-2b (depth 18, random weights from --seed) in
               bf16 served through AgentRM -> PagedEngineBackend ->
               PagedInferenceEngine -> mixed_step_paged (K1): several agents,
@@ -42,6 +48,19 @@ Phases, each printing one JSON line (several for the kernel cases):
               (K3) against ``decode_step`` fed token by token at a scalar
               cache_len (K4), within 2e-3, and ``prefill`` + ``decode_step``
               against ``forward`` on the next token.
+8. ssm      — full-width, full-depth mamba2-370m (48 layers) in bf16:
+              ``prefill`` of 4 prompts of 512 tokens (K5 in every layer),
+              32 greedy ``decode_step``s, a replay with the same tokens,
+              a profiled prefill and decode step; then f32, b=2: ``forward`` over 512 tokens against
+              ``decode_step`` token by token at every position, and
+              ``prefill`` of 255 + one ``decode_step`` against ``forward``
+              over 256, within 2e-3, the next token equal.
+9. hybrid   — full-width zamba2-7b in bf16 at full depth (81 layers):
+              ``forward`` over b=1, s=512 (K3 per group, K5 per Mamba-2
+              layer), 32 ``decode_step``s from position 0 (K4 per group),
+              a profiled forward and decode step; then f32 at a depth cut
+              to 13 layers: ``forward`` over 64
+              tokens against ``decode_step`` token by token, within 2e-3.
 
 Every kernel's launch count is set to 0 just before a path is driven and
 read just after; launches made to compare a kernel with its plain version
@@ -52,6 +71,7 @@ Any failure raises and exits non-zero before that line is printed.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -122,37 +142,43 @@ def _bound(nbytes: int, flops: int, dname: str) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
-def _check(name, got, want, dname):
-    """Kernel vs plain version. bf16: both round the f32 result to bf16,
-    so they may differ by one bf16 ulp of outputs below ~1.5 (1e-2).
-    f32: the same math summed in another order over d=256 and the keys,
-    1e-5."""
+def _check(name, got, want, tol):
+    """Kernel vs plain version (a tensor or a tuple of them), within
+    ``tol`` (atol and rtol). Attention: bf16 outputs may differ by one bf16
+    ulp below ~1.5 (1e-2), f32 by another summation order (1e-5)."""
     import torch
-    err = (got.float() - want.float()).abs().max().item()
-    tol = TOL[dname]
-    ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
-    if not ok or not torch.isfinite(got.float()).all():
-        raise AssertionError(f"{name}: max_abs_err {err} beyond {tol}")
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    err = 0.0
+    for g, w in zip(got, want):
+        err = max(err, (g.float() - w.float()).abs().max().item())
+        ok = torch.allclose(g.float(), w.float(), atol=tol, rtol=tol)
+        if not ok or not torch.isfinite(g.float()).all():
+            raise AssertionError(f"{name}: max_abs_err {err} beyond {tol}")
     return err
 
 
 def measure(torch, flush, kernel: str, case: dict, dname: str, fn, plain,
-            library, library_as_out, bound: dict, reps: int = 20) -> dict:
+            library, library_as_out, bound: dict, reps: int = 20,
+            tol=None) -> dict:
     """Check ``fn`` (the kernel) against ``plain`` on the card, then time
     it, the plain version and ``library`` (one PyTorch call computing the
     same function, never called by the port; ``library_as_out`` maps its
-    result to the kernel's layout for its error). Emits and returns the
-    case's row."""
+    result to the kernel's layout for its error; None where no PyTorch call
+    computes the function). Emits and returns the case's row."""
+    tol = TOL[dname] if tol is None else tol
     out, want = fn(), plain()
     torch.cuda.synchronize()
-    err = _check(f"{kernel} {case}", out, want, dname)
+    err = _check(f"{kernel} {case}", out, want, tol)
     ms, host_ms = time_ms(fn, reps, flush)
     plain_ms, _ = time_ms(plain, reps, flush)
-    lib_err = (library_as_out(library()).float()
-               - want.float()).abs().max().item()
-    lib_ms, _ = time_ms(library, reps, flush)
+    lib_ms = lib_err = None
+    if library is not None:
+        lib_err = (library_as_out(library()).float()
+                   - want.float()).abs().max().item()
+        lib_ms, _ = time_ms(library, reps, flush)
     row = {"kernel": kernel, **case, "dtype": dname, "max_abs_err": err,
-           "tol": TOL[dname], "ms": ms, "host_ms": host_ms,
+           "tol": tol, "ms": ms, "host_ms": host_ms,
            "plain_ms": plain_ms, "library_ms": lib_ms,
            "library_max_abs_err": lib_err, **bound}
     emit({"phase": "kernel_case", **row})
@@ -286,8 +312,9 @@ def k2_cases(torch, flush):
 def k3_cases(torch, flush):
     """K3 at the dense engine's prefill lengths (byte prompts of up to 96
     tokens, a ragged 33) and beyond, at gemma-2b heads; one hkv=2 case
-    (chatglm3-6b's grouping at its head_dim) and one dv != d case (the MLA
-    shapes: qk 192, v 128)."""
+    (chatglm3-6b's grouping at its head_dim), one dv != d case (the MLA
+    shapes: qk 192, v 128), and the hybrid's shared block in ``forward``
+    (zamba2-7b: hq = hkv = 32, d = 112, sq = 512)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
     rows = []
@@ -295,6 +322,8 @@ def k3_cases(torch, flush):
              for sq in (33, 96, 256)]
     cases += [(torch.bfloat16, 96, 8, 2, 128, 128),
               (torch.bfloat16, 96, 16, 16, 192, 128)]
+    cases += [(dt, 512, 32, 32, 112, 112)
+              for dt in (torch.bfloat16, torch.float32)]
     for n, (dtype, sq, hq, hkv, d, dv) in enumerate(cases):
         g = torch.Generator(device="cuda").manual_seed(3000 + n)
         q = torch.randn((1, sq, hq, d), generator=g, device="cuda").to(dtype)
@@ -320,15 +349,17 @@ def k3_cases(torch, flush):
 
 def k4_cases(torch, flush):
     """K4 at the dense engine's decode shape: 4 slots of a 1024-token
-    cache, per-row lengths from 1 up; and one scalar length (the lockstep
-    decode)."""
+    cache, per-row lengths from 1 up; one scalar length (the lockstep
+    decode); and the hybrid's ring decode (zamba2-7b: hq = hkv = 32,
+    d = 112, one row, a scalar length)."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops, ref
     rows = []
-    cases = [(torch.bfloat16, False), (torch.float32, False),
-             (torch.bfloat16, True)]
-    b, S, hq, hkv, d = 4, 1024, 8, 1, 256
-    for n, (dtype, scalar) in enumerate(cases):
+    gemma, ring = (4, 1024, 8, 1, 256), (1, 1024, 32, 32, 112)
+    cases = [(torch.bfloat16, False, gemma), (torch.float32, False, gemma),
+             (torch.bfloat16, True, gemma), (torch.bfloat16, True, ring),
+             (torch.float32, True, ring)]
+    for n, (dtype, scalar, (b, S, hq, hkv, d)) in enumerate(cases):
         g = torch.Generator(device="cuda").manual_seed(4000 + n)
         q = torch.randn((b, 1, hq, d), generator=g, device="cuda").to(dtype)
         k = torch.randn((b, S, hkv, d), generator=g, device="cuda").to(dtype)
@@ -346,7 +377,8 @@ def k4_cases(torch, flush):
         nbytes += sum(lens) * hkv * 2 * d * es
         flops = sum(lens) * hq * 2 * 2 * d
         rows.append(measure(
-            torch, flush, "K4", {"b": b, "S": S, "scalar_len": scalar,
+            torch, flush, "K4", {"b": b, "S": S, "hq": hq, "hkv": hkv,
+                                 "d": d, "scalar_len": scalar,
                                  "lens": lens, "pairing": "g_major"}, dname,
             lambda: ops.decode_attention(q, k, v, kv_len, pairing="g_major"),
             lambda: ref.decode_attention_ref(q[:, 0], k, v, kv_len,
@@ -357,6 +389,65 @@ def k4_cases(torch, flush):
     return rows
 
 
+SSD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+
+def _ssd_bound(b, s, h, p, g, n, L, es, init, dname) -> dict:
+    """K5: x, B, C read and y written once in the compute dtype, dt, A,
+    the initial state (if any) and the final state in float32; operations:
+    C.B^T over the causal half once per (row, group, chunk), and per head
+    M @ x over that half, C @ S, the state update, and the three products
+    that make each entry of M."""
+    nc = s // L
+    half = L * (L + 1) // 2
+    nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * es
+    nbytes += (b * s * h + h + (2 if init else 1) * b * h * n * p) * 4
+    flops = b * nc * g * half * 2 * n
+    flops += b * nc * h * (half * (2 * p + 3) + 2 * 2 * L * n * p)
+    return _bound(nbytes, flops, dname)
+
+
+def ssd_cases(torch, flush):
+    """K5 at the paths' shapes, bf16 and f32: mamba2-370m's heads at b = 4,
+    s = 512 (two chunks of 256; its prefill), zamba2-7b's at b = 1, s = 512
+    (its forward), a ragged single chunk (s = 100), two B/C groups, and an
+    initial state. x, B and C are strided views of one conv-output-like
+    tensor, as ``mamba_full`` hands them over."""
+    from repro_torch.kernels.ssd import ops, ref
+    rows = []
+    shapes = [  # name, b, s, h, p, g, n, initial state
+        ("mamba2-370m", 4, 512, 32, 64, 1, 128, False),
+        ("zamba2-7b", 1, 512, 112, 64, 1, 64, False),
+        ("ragged", 4, 100, 32, 64, 1, 128, False),
+        ("groups2", 2, 512, 32, 64, 2, 128, False),
+        ("initial_state", 4, 512, 32, 64, 1, 128, True)]
+    cases = [(dt, shape) for dt in (torch.bfloat16, torch.float32)
+             for shape in shapes]
+    for k, (dtype, (name, b, s, h, p, g, n, init)) in enumerate(cases):
+        gen = torch.Generator(device="cuda").manual_seed(5000 + k)
+        xbc = (torch.randn((b, s, h * p + 2 * g * n), generator=gen,
+                           device="cuda") * 0.5).to(dtype)
+        x, B, C = torch.split(xbc, [h * p, g * n, g * n], dim=-1)
+        x, B, C = (x.unflatten(-1, (h, p)), B.unflatten(-1, (g, n)),
+                   C.unflatten(-1, (g, n)))
+        dt = torch.rand((b, s, h), generator=gen, device="cuda") * 0.1 + 1e-3
+        A = -torch.linspace(1.0, 16.0, h, device="cuda")
+        st = (torch.randn((b, g, h // g, n, p), generator=gen,
+                          device="cuda") * 0.5 if init else None)
+        dname = _dname(dtype)
+        L = min(256, s)
+        rows.append(measure(
+            torch, flush, "K5", {"shape": name, "b": b, "s": s, "h": h,
+                                 "p": p, "g": g, "n": n, "L": L,
+                                 "initial_state": init}, dname,
+            lambda: ops.ssd(x, dt, A, B, C, 256, st),
+            lambda: ref.ssd_chunked_ref(x, dt, A, B, C, 256, st),
+            None, None,
+            _ssd_bound(b, s, h, p, g, n, L, xbc.element_size(), init, dname),
+            tol=SSD_TOL[dname]))
+    return rows
+
+
 # ------------------------------------------------------- launch counts
 
 def wrappers():
@@ -364,8 +455,10 @@ def wrappers():
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.ssd import ops as ssd
     return {"K1": pa.paged_prefill_attention, "K2": pa.paged_attention,
-            "K3": fa.flash_attention, "K4": da.decode_attention}
+            "K3": fa.flash_attention, "K4": da.decode_attention,
+            "K5": ssd.ssd}
 
 
 def reset_counts():
@@ -791,6 +884,264 @@ def lockstep_phase(torch, seed: int, b: int = 2, s: int = 64):
             "logit_abs_max": ref.abs().max().item()}
 
 
+# ----------------------------------------------------------------- ssm
+
+def _profile_calls(torch, fn, n: int = 2) -> dict:
+    """Where ``n`` calls of ``fn`` spend their time, under torch.profiler
+    after one warm call: the calls' wall ms (the profiler slows the host),
+    the device's busy ms per call (kernels, copies, memsets) and its idle
+    share of that wall, and the top kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    dev = {e.key: e.self_device_time_total / 1e3 / n
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0}
+    busy = sum(dev.values())
+    return {"wall_ms_profiled": wall, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall,
+            "ssd_kernel_ms": sum(v for k, v in dev.items()
+                                 if "ssd_kernel" in k),
+            "top_device_ms": _top(dev)}
+
+
+def _lockstep_err(name, got, want) -> float:
+    """Decode against forward at f32, within the reference's 2e-3 (atol and
+    rtol); returns the max abs error."""
+    import torch
+    if not torch.allclose(got, want, atol=LOCKSTEP_TOL, rtol=LOCKSTEP_TOL):
+        raise AssertionError(f"{name}: max_abs_err "
+                             f"{(got - want).abs().max().item()} beyond "
+                             f"{LOCKSTEP_TOL}")
+    return (got - want).abs().max().item()
+
+
+def _greedy(model, params, toks, steps: int):
+    """prefill of ``toks`` (b, s) then ``steps`` greedy decode_steps;
+    returns (ids (b, 1 + steps) on the host, prefill ms, decode step ms)."""
+    import numpy as np
+    import torch
+    b, s = toks.shape
+    state = model.init_decode_state(b, s + steps, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = model.prefill(params, toks, state=state)
+    tok = last[:, -1].argmax(-1).to(torch.int32)[:, None]
+    ids = [tok.cpu()]
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    step_ms = []
+    for t in range(steps):
+        t0 = time.perf_counter()
+        logits = model.decode_step(params, state, tok, s + t)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        ids.append(tok.cpu())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if not all(torch.isfinite(x).all() for x in (last, logits)):
+        raise AssertionError("greedy decode: non-finite logits")
+    return np.concatenate([x.numpy() for x in ids], 1), prefill_ms, step_ms
+
+
+def ssm_phase(torch, seed: int, b: int = 4, s: int = 512, steps: int = 32):
+    """Full-width, full-depth mamba2-370m (48 Mamba-2 layers, random
+    weights from ``seed``), served as the reference serves an SSM: bf16
+    ``prefill`` of b prompts (K5 in every layer), then greedy lockstep
+    ``decode_step``s; a replay gives the same tokens. Then f32, b = 2:
+    ``forward`` over s tokens against ``decode_step`` fed token by token,
+    and ``prefill`` of chunk - 1 tokens (255) + one ``decode_step`` against
+    ``forward`` over a whole chunk."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config("mamba2-370m")
+    model = build(cfg)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, generator=g, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                         device="cuda", dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    ids, prefill_ms, step_ms = _greedy(model, params, toks, steps)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    _expect("ssm", counts, {"K5": cfg.n_layers})
+    ids2, prefill2_ms, step2_ms = _greedy(model, params, toks, steps)
+    if not np.array_equal(ids, ids2):
+        raise AssertionError("ssm: a replay of prefill + greedy decode "
+                             "gave other tokens")
+    peak_bf16 = torch.cuda.max_memory_allocated() / 1e9
+    state = model.init_decode_state(b, s + 1, device="cuda")
+    profile = {"prefill": _profile_calls(
+        torch, lambda: model.prefill(params, toks, state=state)),
+        "decode_step": _profile_calls(
+            torch, lambda: model.decode_step(params, state, toks[:, :1], s),
+            n=4)}
+    del params, state
+
+    cfg32 = cfg.replace(compute_dtype="float32")
+    model32 = build(cfg32)
+    params = init_params(cfg32, generator=g, device="cuda")
+    b32 = 2
+    toks = torch.randint(0, cfg.vocab_size, (b32, s), generator=g,
+                         device="cuda", dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ref = model32.forward(params, toks)                     # (b, s, V)
+    state = model32.init_decode_state(b32, s, device="cuda")
+    dec_err = 0.0
+    for t in range(s):
+        logits = model32.decode_step(params, state, toks[:, t:t + 1], t)
+        dec_err = max(dec_err, _lockstep_err(f"ssm f32 position {t}",
+                                             logits[:, 0], ref[:, t]))
+    split = min(s, cfg.ssm.chunk) - 1     # a prompt within one chunk
+    ref_p = model32.forward(params, toks[:, :split + 1])
+    state = model32.init_decode_state(b32, split + 1, device="cuda")
+    last = model32.prefill(params, toks[:, :split], state=state)
+    nxt = model32.decode_step(params, state, toks[:, split:split + 1], split)
+    torch.cuda.synchronize()
+    counts32 = read_counts()
+    # K5 ran in the two forwards and the prefill, in every layer
+    _expect("ssm f32", counts32, {"K5": cfg.n_layers * 3})
+    errs = {"decode_vs_forward_all_positions": dec_err,
+            "prefill_vs_forward": _lockstep_err(
+                "ssm f32 prefill", last[:, 0], ref_p[:, split - 1]),
+            "prefill_decode_vs_forward": _lockstep_err(
+                "ssm f32 prefill + decode", nxt[:, 0], ref_p[:, split])}
+    if not torch.equal(nxt[:, 0].argmax(-1), ref_p[:, split].argmax(-1)):
+        raise AssertionError("ssm f32: prefill + decode_step picks another "
+                             "next token than forward")
+    n_out = b * (1 + steps)
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "b": b,
+            "prompt_tokens": s, "decode_steps": steps, "dtype": "bfloat16",
+            "launches": {k: counts[k] + counts32[k] for k in counts},
+            "launches_bf16_serving": counts,
+            "prefill_ms": [prefill_ms, prefill2_ms],
+            "decode_step_median_ms": [float(np.median(step_ms)),
+                                      float(np.median(step2_ms))],
+            "output_tokens_per_s": n_out / wall,
+            "replay_deterministic": True,
+            "peak_mem_gb_bf16": peak_bf16, "profile": profile,
+            "f32": {"b": b32, "s": s, "prefill_split": split,
+                    "tol": LOCKSTEP_TOL,
+                    "max_abs_err": errs, "next_token_equal": True,
+                    "logit_abs_max": ref.abs().max().item(),
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}}
+
+
+# -------------------------------------------------------------- hybrid
+
+def hybrid_phase(torch, seed: int, s: int = 512, steps: int = 32,
+                 n_fwd: int = 2):
+    """Full-width zamba2-7b (d_model 3584, 32 heads of 112, d_in 7168,
+    d_state 64, random weights from ``seed``) in bf16 at full depth (81
+    layers: 13 groups of [shared block, 6 Mamba-2 layers], a tail of 3):
+    ``forward`` over b = 1, s tokens (K3 in each application of the shared
+    block, K5 in each Mamba-2 layer), then ``decode_step`` from position 0
+    (the reference's hybrid has no prefill): the first 8 prompt tokens fed,
+    then greedy, ``steps`` steps in all (K4 through each ring). Then f32 at
+    a depth cut to 13 layers (2 groups and a tail of 1): ``forward`` over
+    64 tokens against ``decode_step`` fed token by token."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.models.hybrid import _layout, init_params
+
+    cfg = get_config("zamba2-7b")
+    n_groups, _, tail = _layout(cfg)
+    model = build(cfg)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(cfg, generator=g, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    toks = torch.randint(0, cfg.vocab_size, (1, s), generator=g,
+                         device="cuda", dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    fwd_ms = []
+    for _ in range(n_fwd):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model.forward(params, toks)
+        torch.cuda.synchronize()
+        fwd_ms.append((time.perf_counter() - t0) * 1e3)
+    if logits.shape != (1, s, cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"hybrid forward: shape {tuple(logits.shape)} "
+                             "or non-finite logits")
+    state = model.init_decode_state(1, steps, device="cuda")
+    tok, ids, step_ms = toks[:, :1], [], []
+    for t in range(steps):
+        t0 = time.perf_counter()
+        out = model.decode_step(params, state, tok, t)
+        nxt = out[:, -1].argmax(-1).to(torch.int32)[:, None]
+        tok = toks[:, t + 1:t + 2] if t + 1 < 8 else nxt
+        ids.append(int(nxt[0, 0]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if not torch.isfinite(out).all():
+        raise AssertionError("hybrid decode: non-finite logits")
+    counts = read_counts()
+    _expect("hybrid", counts, {"K5": cfg.n_layers * n_fwd,
+                               "K3": n_groups * n_fwd,
+                               "K4": n_groups * steps})
+    peak_bf16 = torch.cuda.max_memory_allocated() / 1e9
+    profile = {"forward": _profile_calls(
+        torch, lambda: model.forward(params, toks), n=1),
+        "decode_step": _profile_calls(
+            torch, lambda: model.decode_step(params, state, tok, steps - 1),
+            n=4)}
+    del params, state
+
+    cfg32 = cfg.replace(compute_dtype="float32", n_layers=13)
+    g32, _, tail32 = _layout(cfg32)
+    model32 = build(cfg32)
+    params = init_params(cfg32, generator=g, device="cuda")
+    b32, s32 = 2, 64
+    toks = torch.randint(0, cfg.vocab_size, (b32, s32), generator=g,
+                         device="cuda", dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ref = model32.forward(params, toks)
+    state = model32.init_decode_state(b32, s32, device="cuda")
+    err = 0.0
+    for t in range(s32):
+        out = model32.decode_step(params, state, toks[:, t:t + 1], t)
+        err = max(err, _lockstep_err(f"hybrid f32 position {t}", out[:, 0],
+                                     ref[:, t]))
+    torch.cuda.synchronize()
+    counts32 = read_counts()
+    _expect("hybrid f32", counts32, {"K5": cfg32.n_layers, "K3": g32,
+                                     "K4": g32 * s32})
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "groups": n_groups,
+            "tail": tail, "b": 1, "s": s, "dtype": "bfloat16",
+            "init_s": t_init, "forward_ms": fwd_ms,
+            "forward_tokens_per_s": s / (min(fwd_ms) / 1e3),
+            "decode_steps": steps,
+            "decode_step_median_ms": float(np.median(step_ms)),
+            "decode_tokens_per_s": 1e3 / float(np.median(step_ms)),
+            "greedy_ids": ids,
+            "launches": {k: counts[k] + counts32[k] for k in counts},
+            "launches_bf16": counts, "peak_mem_gb_bf16": peak_bf16,
+            "profile": profile,
+            "f32": {"reduced": "n_layers 81 -> 13 (2 groups + a tail of 1)",
+                    "groups": g32, "tail": tail32, "b": b32, "s": s32,
+                    "tol": LOCKSTEP_TOL,
+                    "max_abs_err_decode_vs_forward_all_positions": err,
+                    "logit_abs_max": ref.abs().max().item(),
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}}
+
+
 # ----------------------------------------------------------------- run
 
 def kernel_entry(name, rows, launches, source, replaces):
@@ -826,6 +1177,7 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.ssd import ops as ssd
     from repro_torch.models.transformer import init_params
 
     smi = nvidia_smi()
@@ -835,12 +1187,13 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    sources = [pa.SOURCE, fa.SOURCE, da.SOURCE]
+    sources = [pa.SOURCE, fa.SOURCE, da.SOURCE, ssd.SOURCE]
     build.build_all(sources)
     pa.load_kernel()
     pa.load_kernel("paged_decode_attention")
     fa.load_kernel()
     da.load_kernel()
+    ssd.load_kernel()
     ptxas = {s.name: [ln.strip() for ln in build.ptxas_log.get(s, "")
                       .splitlines() if "registers" in ln or "spill" in ln]
              for s in sources}
@@ -851,7 +1204,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     cases = {"K1": k1_cases(torch, flush), "K2": k2_cases(torch, flush),
-             "K3": k3_cases(torch, flush), "K4": k4_cases(torch, flush)}
+             "K3": k3_cases(torch, flush), "K4": k4_cases(torch, flush),
+             "K5": ssd_cases(torch, flush)}
     # K1's headline is the widest bucket of the main path, C = 256
     cases["K1"].sort(key=lambda r: (r["dtype"] != "bfloat16", -r["C"]))
     # K3's the dense engine's longest prompt, sq = 96
@@ -880,9 +1234,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     lockstep = lockstep_phase(torch, args.seed)
     emit({"phase": "lockstep", "card": smi, **lockstep})
+    # the engines of the serving phases hold the gemma-2b params in
+    # reference cycles: collect them, so each new phase's peak is its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm = ssm_phase(torch, args.seed)
+    emit({"phase": "ssm", "card": smi, **ssm})
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid = hybrid_phase(torch, args.seed)
+    emit({"phase": "hybrid", "card": smi, **hybrid})
 
     launches = {name: sum(p["launches"][name]
-                          for p in (main, legacy, dense, lockstep))
+                          for p in (main, legacy, dense, lockstep, ssm,
+                                    hybrid))
                 for name in cases}
     src = "src/repro_torch/kernels/"
     ref = "src/repro/kernels/"
@@ -898,7 +1263,9 @@ def main() -> int:
                      ref + "flash_attention/kernel.py:71"),
         kernel_entry("decode_attention", cases["K4"], launches["K4"],
                      src + "decode_attention/csrc/decode_attention.cu",
-                     ref + "decode_attention/kernel.py:59")]
+                     ref + "decode_attention/kernel.py:59"),
+        kernel_entry("ssd", cases["K5"], launches["K5"],
+                     src + "ssd/csrc/ssd.cu", ref + "ssd/kernel.py:75")]
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

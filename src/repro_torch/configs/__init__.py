@@ -1,5 +1,6 @@
 """Model configurations the port serves: the dataclasses (a copy of the
-reference's ``configs/base.py``) and the architectures of its first slice."""
+reference's ``configs/base.py``) and the architectures it serves: the dense
+GQA family, the Mamba-2 SSM and the Zamba2 hybrid."""
 from __future__ import annotations
 
 import importlib
@@ -10,6 +11,8 @@ _ARCH_MODULES = {
     "gemma-2b": "repro_torch.configs.gemma_2b",
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
     "deepseek-67b": "repro_torch.configs.deepseek_67b",
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -2,12 +2,15 @@
 computes on its executed path for the dense GQA family:
 
   * ``gqa_full`` — a full sequence (``forward``, dense prefill), through
-    ``layers.attention`` (kernel K3 on the card);
+    ``layers.attention`` (kernel K3 on the card; a sliding window takes the
+    plain path, as in the reference);
   * ``gqa_decode`` — one token against a contiguous cache at a scalar or
     per-slot length (kernel K4);
   * ``gqa_decode_paged`` / ``gqa_prefill_chunk_paged`` — the legacy paged
     loop's decode (K2) and one sequence's prefill chunk (K1);
-  * ``gqa_mixed_step_paged`` — the megastep's mixed batch (K1).
+  * ``gqa_mixed_step_paged`` — the megastep's mixed batch (K1);
+  * ``gqa_decode_ring`` — the hybrid's shared block at decode, one token
+    against a ring-buffer cache (K4).
 
 ``use_pallas`` is not read: a CUDA tensor launches the Hopper kernel, a CPU
 tensor takes its plain version. Caches and pools are updated in place
@@ -21,7 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.paged_attention import ops as pa
 from repro_torch.models.layers import _init, apply_rope, attention, \
-    rope_tables
+    rope_tables, simple_attention
 
 
 def init_gqa(cfg: ModelConfig, *, generator, device, dtype=torch.float32):
@@ -51,12 +54,15 @@ def _qkv(params, x, pos, cfg: ModelConfig):
     return q, k, v
 
 
-def gqa_full(params, x, cfg: ModelConfig, *, return_kv=False):
+def gqa_full(params, x, cfg: ModelConfig, *, window: int = 0,
+             return_kv=False):
     """x: (b, s, d) -> (b, s, d) causal attention output (and the rotated
-    (k, v) when ``return_kv``), positions 0..s-1."""
+    (k, v) when ``return_kv``), positions 0..s-1, each query seeing the
+    last ``window`` keys (0: all)."""
     b, s, _ = x.shape
     q, k, v = _qkv(params, x, torch.arange(s, device=x.device), cfg)
-    o = attention(q, k, v, causal=True, gqa_mode=cfg.gqa_mode)
+    o = attention(q, k, v, causal=True, window=window,
+                  gqa_mode=cfg.gqa_mode)
     out = o.reshape(b, s, -1) @ params["wo"]
     return (out, (k, v)) if return_kv else out
 
@@ -179,3 +185,32 @@ def gqa_mixed_step_paged(params, x, k_pool, v_pool, page_tables, cache_lens,
                                    cache_lens, valids, page_tables,
                                    pairing=_pairing(cfg))
     return o.reshape(b, C, -1) @ params["wo"]
+
+
+def gqa_decode_ring(params, x, cache_k, cache_v, cache_len: int,
+                    cfg: ModelConfig):
+    """Sliding-window decode against a ring-buffer cache (the hybrid's
+    shared block). x: (b, 1, d); cache_k/cache_v: (b, W, hkv, hd), the
+    entry of absolute position t at slot t % W; this token's K/V (rotated
+    at position ``cache_len``) is written there IN PLACE. The token attends
+    to the ``min(cache_len + 1, W)`` filled slots: all of them once the
+    ring is full, in ring order, which a softmax does not see. On the card
+    through the decode kernel (K4), which reads the ring in place; on the
+    CPU through ``simple_attention``, as the reference does."""
+    b = x.shape[0]
+    w = cache_k.shape[1]
+    cache_len = int(cache_len)
+    q, k, v = _qkv(params, x, torch.tensor([cache_len], device=x.device),
+                   cfg)
+    write = cache_len % w
+    cache_k[:, write] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, write] = v[:, 0].to(cache_v.dtype)
+    kv_len = min(cache_len + 1, w)
+    if x.device.type == "cuda":
+        o = da.decode_attention(q.contiguous(), cache_k, cache_v, kv_len,
+                                pairing=_pairing(cfg))
+    else:
+        o = simple_attention(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
+                             causal=False, kv_len=kv_len,
+                             pairing=_pairing(cfg))
+    return o.reshape(b, 1, -1) @ params["wo"]

@@ -1,5 +1,5 @@
-"""Decoder-only LM, dense GQA family: the port of
-``repro.models.transformer``, run eagerly.
+"""Decoder-only LM, the dense GQA and the Mamba-2 SSM families: the port
+of ``repro.models.transformer``, run eagerly.
 
   * ``forward`` — logits over a full sequence (teacher forcing);
   * ``init_decode_state`` / ``prefill`` / ``decode_step`` — the contiguous
@@ -8,6 +8,12 @@
     — the legacy paged loop;
   * ``mixed_step_paged`` — the megastep: one call advances the whole mixed
     batch one engine iteration.
+
+The SSM family (``family == "ssm"``, mamba2-370m) runs ``forward``,
+``init_decode_state``, ``prefill`` and ``decode_step``: a stack of Mamba-2
+blocks (``models.ssd``, kernel K5 in every full-sequence layer) whose
+decode state is a conv window and an SSD state per layer. The paged
+members are the GQA family's alone, as in the reference.
 
 Params are the prepared dict of ``repro_torch.weights`` (compute dtype,
 layers as a list). Caches and pools are device tensors updated in place,
@@ -23,16 +29,29 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.layers import _init, apply_mlp, init_mlp, rms_norm
 from repro_torch.weights import prepare_params
 
 
 def _check_supported(cfg: ModelConfig):
-    if cfg.family != "dense" or cfg.moe is not None or cfg.mla is not None \
-            or cfg.first_dense_layers:
+    if cfg.family not in ("dense", "ssm") or cfg.moe is not None \
+            or cfg.mla is not None or cfg.first_dense_layers:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense GQA family only; MoE, "
-            "MLA, SSM and VLM stacks come in a later slice")
+            f"{cfg.name}: this module serves the dense GQA and the SSM "
+            "families (the hybrid is models.hybrid); MoE, MLA, enc-dec and "
+            "VLM stacks come in a later slice")
+
+
+def check_gqa_family(cfg: ModelConfig):
+    """The paged pools and both serving engines hold attention K/V: the
+    reference admits only the decoder-only GQA family there."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name}: paged KV pools and the serving engines target the "
+            f"decoder-only GQA family, not {cfg.family!r} (as in the "
+            "reference); serve it through decode_step")
+    _check_supported(cfg)
 
 
 def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
@@ -48,12 +67,18 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
     kw = dict(generator=generator, device=dev, dtype=ct)
     zeros = dict(device=dev, dtype=ct)
     raw = {"embed": _init((cfg.vocab_size, cfg.d_model), scale=0.02, **kw),
-           "final_norm": torch.zeros((cfg.d_model,), **zeros),
-           "layers": [{"attn_norm": torch.zeros((cfg.d_model,), **zeros),
-                       "mlp_norm": torch.zeros((cfg.d_model,), **zeros),
-                       "attn": attn_mod.init_gqa(cfg, **kw),
-                       "mlp": init_mlp(cfg.d_model, cfg.d_ff, cfg.act, **kw)}
-                      for _ in range(cfg.n_layers)]}
+           "final_norm": torch.zeros((cfg.d_model,), **zeros)}
+    if cfg.family == "ssm":
+        raw["layers"] = [{"norm": torch.zeros((cfg.d_model,), **zeros),
+                          "mamba": ssd_mod.init_mamba(cfg, **kw)}
+                         for _ in range(cfg.n_layers)]
+    else:
+        raw["layers"] = [
+            {"attn_norm": torch.zeros((cfg.d_model,), **zeros),
+             "mlp_norm": torch.zeros((cfg.d_model,), **zeros),
+             "attn": attn_mod.init_gqa(cfg, **kw),
+             "mlp": init_mlp(cfg.d_model, cfg.d_ff, cfg.act, **kw)}
+            for _ in range(cfg.n_layers)]
     if not cfg.tie_embeddings:
         raw["lm_head"] = _init((cfg.d_model, cfg.vocab_size), **kw)
     return prepare_params(raw, cfg, dev)
@@ -64,7 +89,7 @@ def init_paged_pools(cfg: ModelConfig, num_blocks: int, block_size: int,
     """(L, num_blocks, blk, hkv, hd) K and V pools. Zero-filled, never
     ``torch.empty``: masked positions still enter p.V with p == 0, and a
     NaN in the null block or a stale slot would turn that into NaN."""
-    _check_supported(cfg)
+    check_gqa_family(cfg)
     ct = torch_dtype(cfg.kv_cache_dtype or cfg.compute_dtype)
     shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
              cfg.resolved_head_dim)
@@ -102,11 +127,23 @@ def _layer_full(x, lp, cfg: ModelConfig, return_kv=False):
     return x + _mlp(lp, x, cfg), kv
 
 
+def _mamba_full(lp, x, cfg: ModelConfig):
+    """One SSM layer over the sequence: (x + block(norm(x)), its decode
+    state)."""
+    y, st = ssd_mod.mamba_full(lp["mamba"],
+                               rms_norm(x, lp["norm"], cfg.norm_eps), cfg)
+    return x + y, st
+
+
 def forward(params, tokens, cfg: ModelConfig):
-    """tokens: (b, s) int -> logits (b, s, V) float32, every position."""
+    """tokens: (b, s) int -> logits (b, s, V) float32, every position. An
+    SSM's s must be at most its chunk or a multiple of it."""
     x = _embed(params, tokens, cfg)
     for lp in params["layers"]:
-        x, _ = _layer_full(x, lp, cfg)
+        if cfg.family == "ssm":
+            x, _ = _mamba_full(lp, x, cfg)
+        else:
+            x, _ = _layer_full(x, lp, cfg)
     return _unembed(params, rms_norm(x, params["final_norm"], cfg.norm_eps))
 
 
@@ -115,12 +152,21 @@ def forward(params, tokens, cfg: ModelConfig):
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device="cuda") -> Dict[str, torch.Tensor]:
     """Zeroed contiguous KV cache: ``k``/``v`` of shape
-    (L, batch, max_len, hkv, hd) in the KV cache dtype."""
+    (L, batch, max_len, hkv, hd) in the KV cache dtype. For the SSM family
+    (no KV, ``max_len`` unused): ``conv`` (L, batch, K-1, conv_dim) in the
+    cache dtype and ``ssm`` (L, batch, g, h/g, n, p) float32."""
     _check_supported(cfg)
     ct = torch_dtype(cfg.kv_cache_dtype or cfg.compute_dtype)
+    dev = resolve_device(device)
+    if cfg.family == "ssm":
+        m, _, h, conv_dim = ssd_mod._dims(cfg)
+        return {"conv": torch.zeros((cfg.n_layers, batch, m.conv_kernel - 1,
+                                     conv_dim), dtype=ct, device=dev),
+                "ssm": torch.zeros((cfg.n_layers, batch, m.n_groups,
+                                    h // m.n_groups, m.d_state, m.head_dim),
+                                   dtype=torch.float32, device=dev)}
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
              cfg.resolved_head_dim)
-    dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=ct, device=dev),
             "v": torch.zeros(shape, dtype=ct, device=dev)}
 
@@ -135,9 +181,15 @@ def prefill(params, tokens, cfg: ModelConfig, *, state: Dict):
     """Full-sequence prefill. tokens: (b, s) -> the last position's logits
     (b, 1, V) float32; each layer's K/V is written into positions [0, s)
     of ``state`` (the dict of ``init_decode_state``, or views of one), in
-    place."""
+    place. An SSM writes each layer's ``conv`` window and final ``ssm``
+    state instead; its s must be at most its chunk or a multiple of it."""
     x = _embed(params, tokens, cfg)
     for li, lp in enumerate(params["layers"]):
+        if cfg.family == "ssm":
+            x, (conv, ssm) = _mamba_full(lp, x, cfg)
+            state["conv"][li] = conv
+            state["ssm"][li] = ssm
+            continue
         x, (k, v) = _layer_full(x, lp, cfg, return_kv=True)
         _fill(state["k"][li], k)
         _fill(state["v"][li], v)
@@ -152,12 +204,25 @@ def _layer_decode(lp, x, k_cache, v_cache, cache_len, cfg: ModelConfig):
     return x + _mlp(lp, x, cfg)
 
 
+def _mamba_decode(lp, x, conv, ssm, cfg: ModelConfig):
+    """One SSM layer at one token; ``conv`` and ``ssm`` (one layer's views
+    of the decode state) are updated in place."""
+    y, (new_conv, new_ssm) = ssd_mod.mamba_decode(
+        lp["mamba"], rms_norm(x, lp["norm"], cfg.norm_eps), (conv, ssm), cfg)
+    conv.copy_(new_conv)
+    ssm.copy_(new_ssm)
+    return x + y
+
+
 def decode_step(params, state: Dict, token, cache_len, cfg: ModelConfig):
     """token (b, 1) -> logits (b, 1, V) float32; ``state`` is updated in
     place. cache_len: an int (every row at one depth: the lockstep decode)
-    or a (b,) int32 tensor (per-slot depths)."""
+    or a (b,) int32 tensor (per-slot depths); an SSM does not read it."""
     x = _embed(params, token, cfg)
     for li, lp in enumerate(params["layers"]):
+        if cfg.family == "ssm":
+            x = _mamba_decode(lp, x, state["conv"][li], state["ssm"][li], cfg)
+            continue
         x = _layer_decode(lp, x, state["k"][li], state["v"][li], cache_len,
                           cfg)
     return _unembed(params, rms_norm(x, params["final_norm"], cfg.norm_eps))

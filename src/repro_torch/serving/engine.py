@@ -22,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import build
+from repro_torch.models.transformer import check_gqa_family
 from repro_torch.weights import numpy_to_torch, torch_to_numpy
 
 
@@ -41,6 +42,7 @@ class InferenceEngine:
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 4,
                  max_len: int = 256, device="cuda"):
+        check_gqa_family(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = build(cfg)

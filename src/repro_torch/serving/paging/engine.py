@@ -39,6 +39,7 @@ from repro_torch.core.context.tiers import KVSwapStore
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention import ops as pa
 from repro_torch.models import build
+from repro_torch.models.transformer import check_gqa_family
 from repro_torch.obs import LATENCY_BUCKETS_S, Observability
 from repro_torch.serving.paging.allocator import (NULL_BLOCK,
                                                   OutOfBlocksError,
@@ -130,6 +131,7 @@ class PagedInferenceEngine:
             raise NotImplementedError(
                 "mesh= (the tensor-parallel megastep) is a later slice of "
                 "the port")
+        check_gqa_family(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         # fleet members get distinct names ("engine0", "engine1", ...) so

@@ -1,10 +1,11 @@
 """Weight bridge: the reference's parameter pytree -> the port's params.
 
 ``params_from_jax`` takes the pytree of ``repro.models.transformer.
-init_params`` with every leaf already converted to a numpy array (the
-caller does ``jax.tree.map(np.asarray, params)``; this module imports no
-JAX). Its layer params are stacked on a leading L axis; the port keeps a
-list of per-layer dicts. Floats are cast to ``cfg.compute_dtype`` ONCE,
+init_params`` (or ``repro.models.hybrid.init_params``) with every leaf
+already converted to a numpy array (the caller does
+``jax.tree.map(np.asarray, params)``; this module imports no JAX). Its
+layer params are stacked on leading axes; the port keeps lists of
+per-layer dicts. Floats are cast to ``cfg.compute_dtype`` ONCE,
 here, which is what the reference's per-call ``cast_floats`` computes every
 step. A numpy leaf whose dtype is named ``bfloat16`` (ml_dtypes) crosses as
 its raw bits (``uint16`` -> ``torch.int16`` view -> bf16), so no ml_dtypes
@@ -57,8 +58,9 @@ def slot_payload_as(payload: Dict, bf16) -> Dict:
 
 
 def prepare_params(raw: Dict, cfg: ModelConfig, device) -> Dict:
-    """Cast raw params (any dtype/device, layers as a list of dicts) to the
-    compute dtype on ``device``. Adds ``unembed``: the (d, V) output
+    """Cast raw params (any dtype/device; per-layer params as lists of
+    dicts, the hybrid's groups as a list of lists) to the compute dtype on
+    ``device``. ``lm_head`` is replaced by ``unembed``: the (d, V) output
     projection in float32, because the reference unembeds in f32 from the
     compute-dtype weights (``transformer._unembed``) — for tied embeddings
     that is ``embed`` rounded to the compute dtype and widened again."""
@@ -72,10 +74,11 @@ def prepare_params(raw: Dict, cfg: ModelConfig, device) -> Dict:
     def tree(x):
         if isinstance(x, dict):
             return {k: tree(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [tree(v) for v in x]
         return cast(x)
 
-    out = {"embed": cast(raw["embed"]), "final_norm": cast(raw["final_norm"]),
-           "layers": [tree(lp) for lp in raw["layers"]]}
+    out = {k: tree(v) for k, v in raw.items() if k != "lm_head"}
     if cfg.tie_embeddings:
         out["unembed"] = out["embed"].float().t()
     else:
@@ -83,10 +86,30 @@ def prepare_params(raw: Dict, cfg: ModelConfig, device) -> Dict:
     return out
 
 
+def _unstack(x, depth: int = 1):
+    """A pytree whose leaves share ``depth`` leading stacked axes (the
+    reference's scanned layers) as nested lists of per-layer pytrees."""
+    if depth == 0:
+        return x
+    leaf = x
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+
+    def pick(t, i):
+        if isinstance(t, dict):
+            return {k: pick(v, i) for k, v in t.items()}
+        return t[i]
+
+    return [_unstack(pick(x, i), depth - 1) for i in range(leaf.shape[0])]
+
+
 def params_from_jax(np_tree: Dict, cfg: ModelConfig,
                     device="cuda") -> Dict:
     """The reference's ``init_params`` pytree (numpy leaves) as the port's
-    params on ``device``."""
+    params on ``device``: ``layers`` stacked (L, ...) becomes a list of L
+    dicts; the hybrid's ``groups`` stacked (G, E, ...) a list of G lists of
+    E dicts and its ``tail`` (T, ...) a list of T dicts; ``shared`` and the
+    rest stay as they are."""
     device = resolve_device(device)     # fail before converting anything
 
     def conv(x):
@@ -94,17 +117,6 @@ def params_from_jax(np_tree: Dict, cfg: ModelConfig,
             return {k: conv(v) for k, v in x.items()}
         return numpy_to_torch(x)
 
-    layers = conv(np_tree["layers"])
-    n = cfg.n_layers
-
-    def pick(x, i):
-        if isinstance(x, dict):
-            return {k: pick(v, i) for k, v in x.items()}
-        return x[i]
-
-    raw = {"embed": conv(np_tree["embed"]),
-           "final_norm": conv(np_tree["final_norm"]),
-           "layers": [pick(layers, i) for i in range(n)]}
-    if "lm_head" in np_tree:
-        raw["lm_head"] = conv(np_tree["lm_head"])
+    depth = {"layers": 1, "groups": 2, "tail": 1}
+    raw = {k: _unstack(conv(v), depth.get(k, 0)) for k, v in np_tree.items()}
     return prepare_params(raw, cfg, device)

@@ -20,7 +20,8 @@ PORT = ROOT / "src" / "repro_torch"
 REF = ROOT / "src" / "repro"
 
 VERBATIM = """configs/base.py configs/gemma_2b.py configs/chatglm3_6b.py
-configs/deepseek_67b.py serving/errors.py serving/backend.py
+configs/deepseek_67b.py configs/mamba2_370m.py configs/zamba2_7b.py
+serving/errors.py serving/backend.py
 serving/paging/allocator.py
 serving/paging/swap.py serving/autopilot.py obs/__init__.py obs/metrics.py
 obs/trace.py core/__init__.py core/monitor.py core/middleware.py

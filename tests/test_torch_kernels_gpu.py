@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
-K1 (paged chunked prefill), K2 (paged decode), K3 (flash attention) and K4
-(decode over a contiguous cache).
+K1 (paged chunked prefill), K2 (paged decode), K3 (flash attention), K4
+(decode over a contiguous cache) and K5 (the Mamba-2 SSD chunked scan).
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device
 (the kernels have no CPU mode). This file imports no jax, so it runs on a
@@ -18,6 +18,8 @@ from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.paged_attention import ops, ref
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as ssd_ref
 
 # test_megastep.py's generator: shuffled non-null pages, ragged valids
 # (full, decode-like, random, inactive), chunks kept inside the table.
@@ -235,3 +237,86 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
     assert counts == (fa.flash_attention.launches,
                       da.decode_attention.launches,
                       ops.paged_attention.launches)
+
+
+# (b, s, h, p, g, n, chunk, with an initial state): mamba2-370m's and
+# zamba2-7b's heads over two chunks, a ragged single chunk (L = s = 100),
+# two B/C groups, the other head dims, an initial state
+SSD_SHAPES = [(1, 512, 4, 64, 1, 128, 256, False),
+              (1, 512, 4, 64, 1, 64, 256, False),
+              (2, 100, 4, 64, 1, 128, 256, False),
+              (2, 128, 8, 32, 2, 64, 64, False),
+              (2, 96, 4, 16, 1, 16, 32, False),
+              (1, 128, 2, 128, 1, 64, 64, False),
+              (2, 256, 4, 64, 1, 128, 128, True)]
+# bf16: m, w and y are rounded to bf16 at the same points on both sides, and
+# a rounding of m flips where the f32 sums before it differ; f32: another
+# summation order
+SSD_DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+
+
+def ssd_case(b, s, h, p, g, n, seed, init=False):
+    """x, dt, A, B, C (and an initial state) as numpy. x, B and C come as
+    slices of one (b, s, h*p + 2*g*n) array, strided along (b, s) as the
+    model's conv output hands them over."""
+    rng = np.random.default_rng(seed)
+    xbc = (rng.standard_normal((b, s, h * p + 2 * g * n)) * 0.5).astype(
+        np.float32)
+    dt = rng.uniform(1e-3, 0.1, (b, s, h)).astype(np.float32)
+    A = -np.linspace(1.0, 8.0, h).astype(np.float32)
+    st = (rng.standard_normal((b, g, h // g, n, p)) * 0.5).astype(np.float32)
+    return xbc, dt, A, (st if init else None)
+
+
+def _ssd_tensors(case, h, p, g, n, dtype, dev):
+    xbc, dt, A, st = case
+    xbc = torch.from_numpy(xbc).to(dev).to(dtype)
+    b, s = xbc.shape[:2]
+    x, B, C = torch.split(xbc, [h * p, g * n, g * n], dim=-1)
+    return (x.unflatten(-1, (h, p)), torch.from_numpy(dt).to(dev),
+            torch.from_numpy(A).to(dev), B.unflatten(-1, (g, n)),
+            C.unflatten(-1, (g, n)),
+            None if st is None else torch.from_numpy(st).to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", SSD_DTYPES)
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_kernel_matches_plain(cuda, shape, dtype, tol):
+    """K5 reads x, B and C in place as strided views; y and the final
+    state against the plain version."""
+    b, s, h, p, g, n, chunk, init = shape
+    x, dt, A, B, C, st = _ssd_tensors(ssd_case(b, s, h, p, g, n, seed=s,
+                                               init=init), h, p, g, n, dtype,
+                                      cuda)
+    assert not x.is_contiguous()
+    before = ssd_ops.ssd.launches
+    y, state = ssd_ops.ssd(x, dt, A, B, C, chunk, st)
+    want_y, want_state = ssd_ref.ssd_chunked_ref(x, dt, A, B, C, chunk, st)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd.launches == before + 1
+    assert y.dtype == dtype and state.dtype == torch.float32
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, want_state, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    """The wrapper raises on CUDA tensors it cannot launch on; it never
+    falls back to the plain version."""
+    h, p, g, n = 4, 16, 1, 16
+    x, dt, A, B, C, _ = _ssd_tensors(ssd_case(2, 32, h, p, g, n, seed=0),
+                                     h, p, g, n, torch.float32, cuda)
+    before = ssd_ops.ssd.launches
+    with pytest.raises(TypeError):
+        ssd_ops.ssd(x.half(), dt, A, B.half(), C.half(), 16)
+    with pytest.raises(TypeError):
+        ssd_ops.ssd(x, dt.double(), A, B, C, 16)
+    with pytest.raises(ValueError):          # x's last dim not contiguous
+        ssd_ops.ssd(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A,
+                    B, C, 16)
+    with pytest.raises(ValueError):          # a head dim it has no build for
+        ssd_ops.ssd(x[..., :8], dt, A, B, C, 16)
+    with pytest.raises(ValueError, match="not divisible"):
+        ssd_ops.ssd(x, dt, A, B, C, 24)
+    assert ssd_ops.ssd.launches == before
