@@ -8,7 +8,8 @@ Phases, each printing one JSON line (several for the kernel cases):
 1. device   — the card's name and power limit (nvidia-smi); fails without
               CUDA.
 2. build    — nvcc builds the port's four kernel sources into
-              build/kernels/, one process each, all started together.
+              build/kernels/, one process each, all started together, and
+              prints each kernel's registers and spills from ptxas.
 3. kernels  — each kernel against its plain PyTorch version on the card, in
               bf16 and f32, at the shapes its path gives it (gemma-2b heads:
               hq=8, hkv=1, d=dv=256; the hybrid's: hq=hkv=32, d=112):
@@ -19,9 +20,15 @@ Phases, each printing one JSON line (several for the kernel cases):
                  plus one hkv=2 case;
               K3 flash attention: b=1, sq in {33, 96, 256}, plus one hkv=2
                  case, one dv != d case and the hybrid's heads at sq=512;
+                 each row gives the grid, and each case is also held to
+                 the tiled walk it runs (P rounded to bf16) at a tighter
+                 tolerance;
               K4 decode over a contiguous cache: b=4 slots, S=1024, per-row
                  lengths from 1 up, plus one scalar-length case and the
-                 hybrid's ring (b=1, S=1024) at its heads;
+                 hybrid's ring (b=1, S=1024) at its heads; each row gives
+                 the split plan, is held to the split-K walk it runs at a
+                 tighter tolerance, and checks two calls give the same
+                 bits;
               K5 SSD chunked scan (bf16 within 2e-2, f32 within 1e-4):
                  mamba2-370m heads at b=4, s=512 (two chunks), zamba2-7b
                  heads at b=1, s=512, a ragged single chunk (s=100), two
@@ -43,7 +50,8 @@ Phases, each printing one JSON line (several for the kernel cases):
               prints the replay's token agreement with the megastep run.
 6. dense    — AgentRM -> EngineBackend -> InferenceEngine (4 slots,
               max_len 1024): K3 per prefill, K4 per decode step. Checks every
-              turn completes, the launch counts and a deterministic replay.
+              turn completes, the launch counts and a deterministic replay,
+              and profiles a decode step with all 4 slots busy.
 7. lockstep — full-width gemma-2b in float32, b=2, s=64: ``forward`` logits
               (K3) against ``decode_step`` fed token by token at a scalar
               cache_len (K4), within 2e-3, and ``prefill`` + ``decode_step``
@@ -73,6 +81,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -84,6 +93,16 @@ PEAK_FLOPS = {"bfloat16": 989e12,       # dense tensor-core bf16
               "float32": 67e12}         # float32 outside the tensor cores
 TOL = {"bfloat16": 1e-2, "float32": 1e-5}   # atol and rtol, see _check
 LOCKSTEP_TOL = 2e-3                     # test_decode_matches_full_forward's
+# (atol, rtol) of K3/K4 against the plain walks they run (the tiled flash
+# walk with P rounded to bf16; the split-K decode from the kernel's plan),
+# in float32 out: a bf16 output is at most half a bf16 ulp (2^-8 relative)
+# from it, K3's also moved by a rare other rounding of P
+WALK_TOL = {("K3", "bfloat16"): (2e-3, 4e-3), ("K3", "float32"): (1e-5, 1e-5),
+            ("K4", "bfloat16"): (1e-4, 4e-3), ("K4", "float32"): (1e-5, 1e-5)}
+# device kernels of K3-K5 by name, for the profiler's shares
+KERNEL_NAMES = {"K3": ("flash_kernel", "flash_tc_kernel"),
+                "K4": ("decode_split_kernel", "decode_merge_kernel"),
+                "K5": ("ssd_kernel",)}
 # the workload of the serving paths: agents, new tokens per turn (base +
 # a per-agent jitter), and the prompt cap in tokens
 N_AGENTS, NEW_TOKENS, JITTER, PROMPT_CAP = 6, 16, 8, 384
@@ -182,6 +201,22 @@ def measure(torch, flush, kernel: str, case: dict, dname: str, fn, plain,
            "plain_ms": plain_ms, "library_ms": lib_ms,
            "library_max_abs_err": lib_err, **bound}
     emit({"phase": "kernel_case", **row})
+    return row
+
+
+def _walk_check(torch, kernel: str, row: dict, got, want) -> dict:
+    """The kernel's output against the plain version of the walk it runs,
+    within WALK_TOL; adds the error and tolerance to the case's row."""
+    atol, rtol = WALK_TOL[(kernel, row["dtype"])]
+    err = (got.float() - want).abs().max().item()
+    if not torch.allclose(got.float(), want, atol=atol, rtol=rtol):
+        raise AssertionError(f"{kernel} {row}: {err} from its walk, beyond "
+                             f"atol {atol} rtol {rtol}")
+    row.update(walk_max_abs_err=err, walk_tol=[atol, rtol])
+    emit({"phase": "kernel_walk", "kernel": kernel,
+          **{k: row[k] for k in row if k in ("sq", "hq", "S", "lens",
+                                             "dtype")},
+          "walk_max_abs_err": err, "walk_tol": [atol, rtol]})
     return row
 
 
@@ -335,15 +370,22 @@ def k3_cases(torch, flush):
         es = q.element_size()
         nbytes = (q.numel() + k.numel() + v.numel() + sq * hq * dv) * es
         flops = sq * (sq + 1) // 2 * hq * 2 * (d + dv)
-        rows.append(measure(
+        row = measure(
             torch, flush, "K3", {"b": 1, "sq": sq, "hq": hq, "hkv": hkv,
-                                 "d": d, "dv": dv, "pairing": "g_major"},
+                                 "d": d, "dv": dv, "pairing": "g_major",
+                                 **ops.launch_grid(1, sq, hq, hkv, d, dv,
+                                                   dtype)},
             dname,
             lambda: ops.flash_attention(q, k, v, pairing="g_major"),
             lambda: ref.attention_ref(q, k, v, pairing="g_major"),
             lambda: F.scaled_dot_product_attention(q.transpose(1, 2), ks, vs,
                                                    is_causal=True),
-            lambda o: o.transpose(1, 2), _bound(nbytes, flops, dname)))
+            lambda o: o.transpose(1, 2), _bound(nbytes, flops, dname))
+        walk = ref.attention_tiled_ref(
+            q.float(), k.float(), v.float(), pairing="g_major",
+            p_dtype=dtype if dtype == torch.bfloat16 else None)
+        rows.append(_walk_check(torch, "K3", row, ops.flash_attention(
+            q, k, v, pairing="g_major"), walk))
     return rows
 
 
@@ -376,16 +418,30 @@ def k4_cases(torch, flush):
         nbytes = (q.numel() + b * hq * d) * es + b * 4
         nbytes += sum(lens) * hkv * 2 * d * es
         flops = sum(lens) * hq * 2 * 2 * d
-        rows.append(measure(
+        split, n_split = ops.kernel_plan(q, k, v)
+        row = measure(
             torch, flush, "K4", {"b": b, "S": S, "hq": hq, "hkv": hkv,
                                  "d": d, "scalar_len": scalar,
-                                 "lens": lens, "pairing": "g_major"}, dname,
+                                 "lens": lens, "pairing": "g_major",
+                                 "split": split, "n_split": n_split,
+                                 "blocks": [n_split * hkv * b, b * hq]},
+            dname,
             lambda: ops.decode_attention(q, k, v, kv_len, pairing="g_major"),
             lambda: ref.decode_attention_ref(q[:, 0], k, v, kv_len,
                                              pairing="g_major")[:, None],
             lambda: F.scaled_dot_product_attention(q.transpose(1, 2), ks, vs,
                                                    attn_mask=mask),
-            lambda o: o.transpose(1, 2), _bound(nbytes, flops, dname)))
+            lambda o: o.transpose(1, 2), _bound(nbytes, flops, dname))
+        once = ops.decode_attention(q, k, v, kv_len, pairing="g_major")
+        twice = ops.decode_attention(q, k, v, kv_len, pairing="g_major")
+        torch.cuda.synchronize()
+        if not torch.equal(once, twice):
+            raise AssertionError(f"K4 {row}: two calls gave other bits")
+        row["bitwise_repeat"] = True
+        walk = ref.decode_attention_split_ref(
+            q[:, 0].float(), k.float(), v.float(), kv_len, split=split,
+            pairing="g_major")
+        rows.append(_walk_check(torch, "K4", row, once[:, 0], walk))
     return rows
 
 
@@ -822,6 +878,7 @@ def dense_phase(torch, cfg, params, prompts):
         eng.submit(rng.integers(1, cfg.vocab_size, 96), max_new_tokens=64)
     admit_ms = _timed_steps(eng, 1)[0]
     decode_ms = _timed_steps(eng, 8)
+    profile = _profile_calls(torch, eng.step, n=4)
     n_out = sum(len(t) for t in toks.values())
     return {
         "turns": len(toks), "failed_turns": 0, "tokens_out": n_out,
@@ -832,6 +889,7 @@ def dense_phase(torch, cfg, params, prompts):
         "agentrm_turns_equal_replay": same,
         "admit_step_ms": admit_ms, "decode_step_ms": decode_ms,
         "decode_median_ms": float(np.median(decode_ms)),
+        "profile_decode_step": profile,
     }
 
 
@@ -890,7 +948,8 @@ def _profile_calls(torch, fn, n: int = 2) -> dict:
     """Where ``n`` calls of ``fn`` spend their time, under torch.profiler
     after one warm call: the calls' wall ms (the profiler slows the host),
     the device's busy ms per call (kernels, copies, memsets) and its idle
-    share of that wall, and the top kernels by device time."""
+    share of that wall, the device ms of K3, K4 and K5 per call, and the
+    top kernels by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -909,8 +968,9 @@ def _profile_calls(torch, fn, n: int = 2) -> dict:
     busy = sum(dev.values())
     return {"wall_ms_profiled": wall, "device_busy_ms": busy,
             "device_idle_share": 1 - busy / wall,
-            "ssd_kernel_ms": sum(v for k, v in dev.items()
-                                 if "ssd_kernel" in k),
+            "kernel_ms": {name: sum(v for k, v in dev.items()
+                                    if any(x in k for x in names))
+                          for name, names in KERNEL_NAMES.items()},
             "top_device_ms": _top(dev)}
 
 
@@ -1144,6 +1204,27 @@ def hybrid_phase(torch, seed: int, s: int = 512, steps: int = 32,
 
 # ----------------------------------------------------------------- run
 
+def _ptxas(log: str) -> list:
+    """ptxas's report per kernel: [name<template args>, registers, spill
+    stores in bytes]."""
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            k = re.search(r"([a-z_]+_kernel)I(.*?)EEv", m.group(1))
+            args = k and (re.findall(r"Li(\d+)E", k.group(2)) or [
+                "float" if k.group(2) == "f" else "bf16"])
+            name = f"{k.group(1)}<{','.join(args)}>" if k \
+                else m.group(1)[:60]
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name:
+            out.append([name, None, int(m.group(1))])
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and out and out[-1][1] is None:
+            out[-1][1] = int(m.group(1))
+    return out
+
+
 def kernel_entry(name, rows, launches, source, replaces):
     """The kernels line's entry: the headline case's times and bound (the
     first bf16 case at the main shape), the largest bf16 error."""
@@ -1194,9 +1275,7 @@ def main() -> int:
     fa.load_kernel()
     da.load_kernel()
     ssd.load_kernel()
-    ptxas = {s.name: [ln.strip() for ln in build.ptxas_log.get(s, "")
-                      .splitlines() if "registers" in ln or "spill" in ln]
-             for s in sources}
+    ptxas = {s.name: _ptxas(build.ptxas_log.get(s, "")) for s in sources}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
 

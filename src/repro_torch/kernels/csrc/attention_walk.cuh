@@ -1,10 +1,12 @@
 // Shared device code of the port's attention kernels for NVIDIA Hopper
 // (sm_90a): paged chunked prefill (K1) and paged decode (K2) in
-// paged_attention/csrc/paged_prefill_attention.cu, flash attention (K3) in
-// flash_attention/csrc/flash_attention.cu and contiguous-cache decode (K4)
-// in decode_attention/csrc/decode_attention.cu.
+// paged_attention/csrc/paged_prefill_attention.cu, and flash attention's
+// float32 path (K3) in flash_attention/csrc/flash_attention.cu. K3's bf16
+// path (tensor cores) and the contiguous-cache decode (K4, split over keys)
+// no longer use its walk (K4 takes only its type conversions and
+// warp_sum); their other helpers are in hopper.cuh.
 //
-// All four compute one function: each query row attends, with an online
+// All of them compute one function: each query row attends, with an online
 // softmax in float32, to the keys visible to it, where key kpos is visible
 // iff  kpos <= qpos  and  kpos < kv_len  (qpos and kv_len per row). They
 // differ only in where the keys live (pool pages through a page table, or a

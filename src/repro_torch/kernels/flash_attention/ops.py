@@ -15,7 +15,8 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import launch
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import BLOCK_M, attention_ref, \
+    key_tile
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _fns: dict = {}
@@ -26,6 +27,20 @@ def load_kernel():
     if "fn" not in _fns:
         _fns["fn"] = launch.bind(SOURCE, "flash_attention", 4, 7, 2)
     return _fns["fn"]
+
+
+def launch_grid(b: int, sq: int, hq: int, hkv: int, d: int, dv: int,
+                dtype) -> dict:
+    """The kernel's grid and tiles for these shapes: bf16 blocks of 64 rows
+    (query positions x the g q-heads of one kv head) walking key tiles; f32
+    blocks of 8 rows walking tiles of 16 keys."""
+    rows = sq * (hq // hkv)
+    if dtype == torch.bfloat16:
+        m, n, threads = BLOCK_M, key_tile(d, dv), 128
+    else:
+        m, n, threads = 8, 16, 256
+    return {"grid": [-(-rows // m), hkv, b], "block_m": m, "block_n": n,
+            "threads": threads}
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None,
@@ -48,6 +63,8 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None,
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
     launch.check_heads(hq, hkv, d, dv, k, v)
+    if q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned (cp.async staging)")
     out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device)
     if b == 0 or sq == 0 or skv == 0:
         return out

@@ -85,14 +85,23 @@ def dense_case(b, s_q, s_kv, hq, hkv, d, dv, seed):
 # (b, hq, hkv, d, dv, npages); blk 16 is gemma-2b's serving page size
 DECODE_SHAPES = [(3, 4, 2, 32, 32, 4), (2, 8, 1, 64, 32, 3),
                  (4, 8, 1, 256, 256, 6)]
-# (b, sq, hq, hkv, d, dv, causal): ragged sq, MQA, GQA, dv != d
+# (b, sq, hq, hkv, d, dv, causal): ragged sq, MQA, GQA, dv != d, and
+# zamba2-7b's heads (d = 112, g = 1)
 FLASH_SHAPES = [(2, 33, 4, 2, 64, 64, True), (1, 96, 8, 1, 256, 256, True),
                 (2, 40, 4, 1, 64, 32, False), (1, 7, 6, 6, 32, 32, True),
-                (1, 130, 4, 2, 128, 128, True)]
-# (b, S, hq, hkv, d, dv)
+                (1, 130, 4, 2, 128, 128, True),
+                (1, 130, 4, 4, 112, 112, True)]
+# (b, S, hq, hkv, d, dv); S = 1003 lies off every split, with a row of
+# length 1 in it
 DENSE_DECODE_SHAPES = [(4, 100, 8, 1, 256, 256), (2, 64, 4, 2, 32, 32),
-                       (3, 48, 4, 4, 64, 32)]
+                       (3, 48, 4, 4, 64, 32), (2, 1003, 8, 2, 64, 64)]
 DTYPES = [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)]
+# Against the plain versions that walk as the kernels do (the tiled flash
+# walk with P rounded to bf16, the split-K decode from the kernel's plan),
+# in float32 out: bf16 outputs are one rounding apart, at most half a bf16
+# ulp (2^-8 relative); K3 also flips a rare rounding of P.
+TIGHT = {"K3": {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-3, 4e-3)},
+         "K4": {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-4, 4e-3)}}
 
 
 @pytest.fixture
@@ -179,9 +188,14 @@ def test_flash_kernel_matches_plain(cuda, shape, pairing, dtype, tol):
     before = fa.flash_attention.launches
     got = fa.flash_attention(q, k, v, causal=causal, pairing=pairing)
     want = fa_ref.attention_ref(q, k, v, causal=causal, pairing=pairing)
+    tiled = fa_ref.attention_tiled_ref(
+        q.float(), k.float(), v.float(), causal=causal, pairing=pairing,
+        p_dtype=dtype if dtype == torch.bfloat16 else None)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    atol, rtol = TIGHT["K3"][dtype]
+    torch.testing.assert_close(got.float(), tiled, atol=atol, rtol=rtol)
 
 
 @pytest.mark.gpu
@@ -192,7 +206,7 @@ def test_flash_kernel_matches_plain(cuda, shape, pairing, dtype, tol):
 def test_decode_kernel_matches_plain(cuda, shape, scalar, pairing, dtype,
                                      tol):
     """K4 with a scalar length and per-row lengths (one row at 1, one at
-    S)."""
+    S); the same bits on a second call."""
     b, S, hq, hkv, d, dv = shape
     q, k, v = (torch.from_numpy(x).to(cuda).to(dtype)
                for x in dense_case(b, 1, S, hq, hkv, d, dv, seed=S))
@@ -202,12 +216,20 @@ def test_decode_kernel_matches_plain(cuda, shape, scalar, pairing, dtype,
         lens.astype(np.int32)).to(cuda)
     before = da.decode_attention.launches
     got = da.decode_attention(q, k, v, kv_len, pairing=pairing)
+    again = da.decode_attention(q, k, v, kv_len, pairing=pairing)
     want = da_ref.decode_attention_ref(q[:, 0], k, v, kv_len,
                                        pairing=pairing)
+    split, _ = da.kernel_plan(q, k, v)
+    walk = da_ref.decode_attention_split_ref(
+        q[:, 0].float(), k.float(), v.float(), kv_len, split=split,
+        pairing=pairing)
     torch.cuda.synchronize()
-    assert da.decode_attention.launches == before + 1
+    assert da.decode_attention.launches == before + 2
+    assert torch.equal(got, again)
     torch.testing.assert_close(got[:, 0].float(), want.float(), atol=tol,
                                rtol=tol)
+    atol, rtol = TIGHT["K4"][dtype]
+    torch.testing.assert_close(got[:, 0].float(), walk, atol=atol, rtol=rtol)
 
 
 @pytest.mark.gpu
