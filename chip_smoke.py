@@ -14,10 +14,18 @@ Phases, each printing one JSON line (several for the kernel cases):
               bf16 and f32, at the shapes its path gives it (gemma-2b heads:
               hq=8, hkv=1, d=dv=256; the hybrid's: hq=hkv=32, d=112):
               K1 paged chunked prefill: b=8, blk=16, C in {1, 8, 64, 256},
-                 ragged valids, plus one hkv=2 case, and bit for bit against
-                 its gathered-view twin;
+                 ragged valids, plus one hkv=2 case and the paths' prefill
+                 shapes (b=8, C=32: the megastep's bucket; b=1, C=32: the
+                 legacy chunk); bit for bit against its gathered-view twin
+                 and on a second call; each row gives the kernel's route
+                 (split decode at C=1, tensor cores at bf16 C>1, the walk
+                 at f32 C>1) and its key ranges, and is held to the walk
+                 it runs at a tighter tolerance; at C=1, K2 at
+                 lens = cache_lens + 1 equals it bit for bit on the rows
+                 with valids = 1;
               K2 paged decode: b=8, blk=16, histories up to ~900 tokens,
-                 plus one hkv=2 case;
+                 plus one hkv=2 case; the split plan, the split walk at a
+                 tighter tolerance, equal bits on a second call;
               K3 flash attention: b=1, sq in {33, 96, 256}, plus one hkv=2
                  case, one dv != d case and the hybrid's heads at sq=512;
                  each row gives the grid, and each case is also held to
@@ -93,14 +101,22 @@ PEAK_FLOPS = {"bfloat16": 989e12,       # dense tensor-core bf16
               "float32": 67e12}         # float32 outside the tensor cores
 TOL = {"bfloat16": 1e-2, "float32": 1e-5}   # atol and rtol, see _check
 LOCKSTEP_TOL = 2e-3                     # test_decode_matches_full_forward's
-# (atol, rtol) of K3/K4 against the plain walks they run (the tiled flash
-# walk with P rounded to bf16; the split-K decode from the kernel's plan),
-# in float32 out: a bf16 output is at most half a bf16 ulp (2^-8 relative)
-# from it, K3's also moved by a rare other rounding of P
-WALK_TOL = {("K3", "bfloat16"): (2e-3, 4e-3), ("K3", "float32"): (1e-5, 1e-5),
+# (atol, rtol) of K1-K4 against the plain walks they run (the tiled walks
+# with P rounded to bf16 on the tensor cores; the split-K decodes from the
+# kernel's plan), in float32 out: a bf16 output is at most half a bf16 ulp
+# (2^-8 relative) from it, K1's and K3's also moved by a rare other
+# rounding of P
+WALK_TOL = {("K1", "bfloat16"): (2e-3, 4e-3), ("K1", "float32"): (1e-5, 1e-5),
+            ("K2", "bfloat16"): (1e-4, 4e-3), ("K2", "float32"): (1e-5, 1e-5),
+            ("K3", "bfloat16"): (2e-3, 4e-3), ("K3", "float32"): (1e-5, 1e-5),
             ("K4", "bfloat16"): (1e-4, 4e-3), ("K4", "float32"): (1e-5, 1e-5)}
-# device kernels of K3-K5 by name, for the profiler's shares
-KERNEL_NAMES = {"K3": ("flash_kernel", "flash_tc_kernel"),
+# device kernels of K1-K5 by name, for the profiler's shares. K2 runs K1's
+# C = 1 kernels, so a profile cannot tell K2 from K1 at C = 1:
+# _profile_calls refuses a window that launches them
+KERNEL_NAMES = {"K1": ("paged_walk_kernel", "paged_tc_kernel",
+                       "paged_split_kernel", "paged_merge_kernel"),
+                "K2": ("paged_split_kernel", "paged_merge_kernel"),
+                "K3": ("flash_kernel", "flash_tc_kernel"),
                 "K4": ("decode_split_kernel", "decode_merge_kernel"),
                 "K5": ("ssd_kernel",)}
 # the workload of the serving paths: agents, new tokens per turn (base +
@@ -214,8 +230,8 @@ def _walk_check(torch, kernel: str, row: dict, got, want) -> dict:
                              f"atol {atol} rtol {rtol}")
     row.update(walk_max_abs_err=err, walk_tol=[atol, rtol])
     emit({"phase": "kernel_walk", "kernel": kernel,
-          **{k: row[k] for k in row if k in ("sq", "hq", "S", "lens",
-                                             "dtype")},
+          **{k: row[k] for k in row if k in ("b", "C", "sq", "hq", "S",
+                                             "lens", "max_len", "dtype")},
           "walk_max_abs_err": err, "walk_tol": [atol, rtol]})
     return row
 
@@ -229,7 +245,9 @@ def _tile_heads(x, g):
 # ------------------------------------------------------------- kernels
 
 def _paged_case(torch, dtype, C, hkv, seed, *, b=8, hq=8, d=256, blk=16,
-                npages=64):
+                npages=64, rows=None):
+    """Random q and pools over shuffled pages; ``rows`` = (cache_lens,
+    valids) as lists, or ragged rows (b >= 4) when None."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     nb = b * npages + 1
     q = torch.randn((b, C, hq, d), generator=g, device="cuda").to(dtype)
@@ -237,14 +255,17 @@ def _paged_case(torch, dtype, C, hkv, seed, *, b=8, hq=8, d=256, blk=16,
     v = torch.randn((nb, blk, hkv, d), generator=g, device="cuda").to(dtype)
     ids = torch.randperm(nb - 1, generator=g, device="cuda")[: b * npages]
     pt = (ids + 1).reshape(b, npages).to(torch.int32)
-    # ragged rows: inactive, decode-like, partial, full, then random
-    valids = [0, 1, max(C // 3, 1), C] + [
-        int(x) for x in torch.randint(0, C + 1, (b - 4,), generator=g,
-                                      device="cuda")]
-    cache = [0, 37, blk + 3, 5 * blk] + [
-        int(x) for x in torch.randint(0, (npages - 8) * blk, (b - 4,),
-                                      generator=g, device="cuda")]
-    cache = [min(c, npages * blk - C) for c in cache]
+    if rows is None:
+        # ragged rows: inactive, decode-like, partial, full, then random
+        valids = [0, 1, max(C // 3, 1), C] + [
+            int(x) for x in torch.randint(0, C + 1, (b - 4,), generator=g,
+                                          device="cuda")]
+        cache = [0, 37, blk + 3, 5 * blk] + [
+            int(x) for x in torch.randint(0, (npages - 8) * blk, (b - 4,),
+                                          generator=g, device="cuda")]
+        cache = [min(c, npages * blk - C) for c in cache]
+    else:
+        cache, valids = rows
     lens = torch.tensor(cache, dtype=torch.int32, device="cuda")
     vals = torch.tensor(valids, dtype=torch.int32, device="cuda")
     return q, k, v, lens, vals, pt
@@ -270,38 +291,74 @@ def _prefill_bound(q, k, v, lens, vals, pt, dname) -> dict:
     return _bound(nbytes, flops, dname)
 
 
+def _repeat_check(torch, name: str, fn):
+    """Two calls of ``fn`` give equal bits; returns the first output."""
+    once, twice = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(once, twice):
+        raise AssertionError(f"{name}: two calls gave other bits")
+    return once
+
+
 def k1_cases(torch, flush):
+    """K1 at the megastep's buckets (b = 8 rows, C in {1, 8, 32, 64, 256}),
+    the legacy loop's prefill chunk (b = 1, C = 32, a history ending
+    mid-page) and one hkv = 2 case. Each row gives the kernel's plan; each
+    case is held to the walk it runs, to its twin bit for bit and to a
+    second call; at C = 1, K2 at lens = cache_lens + 1 to K1 bit for bit on
+    the rows with valids = 1."""
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import ops, ref
     rows = []
-    cases = [(dt, C, 1) for dt in (torch.bfloat16, torch.float32)
-             for C in (1, 8, 64, 256)] + [(torch.bfloat16, 64, 2)]
-    for n, (dtype, C, hkv) in enumerate(cases):
-        args = _paged_case(torch, dtype, C, hkv, seed=1000 + n)
+    cases = [(dt, C, 1, 8, None) for dt in (torch.bfloat16, torch.float32)
+             for C in (1, 8, 64, 256)] + [(torch.bfloat16, 64, 2, 8, None)]
+    cases += [(torch.bfloat16, 32, 1, 8, None),
+              (torch.bfloat16, 32, 1, 1, ([300], [32]))]
+    for n, (dtype, C, hkv, b, fixed) in enumerate(cases):
+        args = _paged_case(torch, dtype, C, hkv, seed=1000 + n, b=b,
+                           rows=fixed)
         q, k, v, lens, vals, pt = args
         dname = _dname(dtype)
-        out = ops.paged_prefill_attention(*args, pairing="g_major")
+        plan = ops.kernel_plan(q, k, v, pt)
+        name = f"K1 b={b} C={C} {dname}"
+        out = _repeat_check(torch, name, lambda: ops.paged_prefill_attention(
+            *args, pairing="g_major"))
         kg, vg = ref.gather_pages(k, pt), ref.gather_pages(v, pt)
         twin = ops.paged_prefill_attention_contig(q, kg.contiguous(),
                                                   vg.contiguous(), lens,
                                                   vals, pt, pairing="g_major")
         torch.cuda.synchronize()
         if not torch.equal(out, twin):
-            raise AssertionError(f"K1 C={C} {dname}: paged kernel != its "
+            raise AssertionError(f"{name}: paged kernel != its "
                                  "gathered-view twin bit for bit")
+        case = {"b": b, "C": C, "hkv": hkv, "pairing": "g_major", **plan,
+                "bitwise_twin": True, "bitwise_repeat": True}
+        if C == 1:
+            k2 = ops.paged_attention(q, k, v, lens + 1, pt,
+                                     pairing="g_major")
+            torch.cuda.synchronize()
+            one = vals == 1
+            if not torch.equal(out[one], k2[one]):
+                raise AssertionError(f"{name}: K2 at lens = cache_lens + 1 "
+                                     "!= K1 bit for bit on valids = 1 rows")
+            case["k2_equals_k1_rows"] = int(one.sum())
         g = q.shape[2] // hkv
         mask = ref._mixed_mask(C, kg.shape[1], lens, vals)[:, None]
         qs, ks, vs = q.transpose(1, 2), _tile_heads(kg, g), _tile_heads(vg, g)
-        rows.append(measure(
-            torch, flush, "K1", {"C": C, "hkv": hkv, "pairing": "g_major",
-                                 "bitwise_twin": True}, dname,
+        row = measure(
+            torch, flush, "K1", case, dname,
             lambda: ops.paged_prefill_attention(*args, pairing="g_major"),
             lambda: ref.paged_prefill_attention_ref(*args,
                                                     pairing="g_major"),
             lambda: F.scaled_dot_product_attention(qs, ks, vs,
                                                    attn_mask=mask),
             lambda o: o.transpose(1, 2),
-            _prefill_bound(*args, dname)))
+            _prefill_bound(*args, dname))
+        walk = ref.paged_prefill_attention_tiled_ref(
+            q.float(), k.float(), v.float(), lens, vals, pt,
+            split=plan["split"], pairing="g_major",
+            p_dtype=dtype if plan["route"] == "tensor_cores" else None)
+        rows.append(_walk_check(torch, "K1", row, out, walk))
     return rows
 
 
@@ -331,16 +388,25 @@ def k2_cases(torch, flush):
             L = int(lens[r])
             nbytes += -(-L // blk) * blk * hkv * (d + dv) * es
             flops += L * hq * 2 * (d + dv)
-        rows.append(measure(
+        plan = ops.kernel_plan(q, k, v, pt)
+        out = _repeat_check(torch, f"K2 hkv={hkv} {dname}",
+                            lambda: ops.paged_attention(q, k, v, lens, pt,
+                                                        pairing="g_major"))
+        row = measure(
             torch, flush, "K2", {"b": b, "hkv": hkv, "pairing": "g_major",
-                                 "max_len": int(lens.max())}, dname,
+                                 "max_len": int(lens.max()), **plan,
+                                 "bitwise_repeat": True}, dname,
             lambda: ops.paged_attention(q, k, v, lens, pt,
                                         pairing="g_major"),
             lambda: ref.paged_attention_ref(q[:, 0], k, v, lens, pt,
                                             pairing="g_major")[:, None],
             lambda: F.scaled_dot_product_attention(q.transpose(1, 2), ks, vs,
                                                    attn_mask=mask),
-            lambda o: o.transpose(1, 2), _bound(nbytes, flops, dname)))
+            lambda o: o.transpose(1, 2), _bound(nbytes, flops, dname))
+        walk = ref.paged_attention_split_ref(
+            q[:, 0].float(), k.float(), v.float(), lens, pt,
+            split=plan["split"], pairing="g_major")
+        rows.append(_walk_check(torch, "K2", row, out[:, 0], walk))
     return rows
 
 
@@ -432,11 +498,8 @@ def k4_cases(torch, flush):
             lambda: F.scaled_dot_product_attention(q.transpose(1, 2), ks, vs,
                                                    attn_mask=mask),
             lambda o: o.transpose(1, 2), _bound(nbytes, flops, dname))
-        once = ops.decode_attention(q, k, v, kv_len, pairing="g_major")
-        twice = ops.decode_attention(q, k, v, kv_len, pairing="g_major")
-        torch.cuda.synchronize()
-        if not torch.equal(once, twice):
-            raise AssertionError(f"K4 {row}: two calls gave other bits")
+        once = _repeat_check(torch, f"K4 {row}", lambda: ops.decode_attention(
+            q, k, v, kv_len, pairing="g_major"))
         row["bitwise_repeat"] = True
         walk = ref.decode_attention_split_ref(
             q[:, 0].float(), k.float(), v.float(), kv_len, split=split,
@@ -729,7 +792,8 @@ def profile_steps(torch, cfg, params, ekw, seed: int, n_bare: int = 6,
             "device_busy_ms_per_step": busy,
             "device_idle_share": 1 - busy / wall,
             "paged_kernel_ms_per_step": sum(
-                v for k, v in dev.items() if "paged_kernel" in k),
+                v for k, v in dev.items()
+                if any(x in k for x in KERNEL_NAMES["K1"])),
             "top_device_ms_per_step": _top(dev),
             "host_op_ms_per_step": sum(host.values()),
             "top_host_op_ms_per_step": _top(host)})
@@ -948,7 +1012,7 @@ def _profile_calls(torch, fn, n: int = 2) -> dict:
     """Where ``n`` calls of ``fn`` spend their time, under torch.profiler
     after one warm call: the calls' wall ms (the profiler slows the host),
     the device's busy ms per call (kernels, copies, memsets) and its idle
-    share of that wall, the device ms of K3, K4 and K5 per call, and the
+    share of that wall, the device ms of K1-K5 per call, and the
     top kernels by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -965,6 +1029,11 @@ def _profile_calls(torch, fn, n: int = 2) -> dict:
            for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA
            and e.self_device_time_total > 0}
+    shared = [k for k in dev if sum(any(x in k for x in names)
+                                    for names in KERNEL_NAMES.values()) > 1]
+    if shared:
+        raise AssertionError(f"{shared}: K1 at C = 1 and K2 run one kernel; "
+                             "a profile cannot tell their shares apart")
     busy = sum(dev.values())
     return {"wall_ms_profiled": wall, "device_busy_ms": busy,
             "device_idle_share": 1 - busy / wall,
@@ -1212,8 +1281,10 @@ def _ptxas(log: str) -> list:
         m = re.search(r"Function properties for (\S+)", ln)
         if m:
             k = re.search(r"([a-z_]+_kernel)I(.*?)EEv", m.group(1))
-            args = k and (re.findall(r"Li(\d+)E", k.group(2)) or [
-                "float" if k.group(2) == "f" else "bf16"])
+            targs = k.group(2) if k else ""
+            ty = ("float" if targs.startswith("f") else
+                  "bf16" if "bfloat16" in targs else None)
+            args = ([ty] if ty else []) + re.findall(r"L[ib](\d+)E", targs)
             name = f"{k.group(1)}<{','.join(args)}>" if k \
                 else m.group(1)[:60]
         m = re.search(r"(\d+) bytes spill stores", ln)
@@ -1291,7 +1362,9 @@ def main() -> int:
     cases["K3"].sort(key=lambda r: (r["dtype"] != "bfloat16",
                                     r["sq"] != 96, r["hkv"] != 1))
     emit({"phase": "kernels", "cases": sum(map(len, cases.values())),
-          "all_within_tol": True, "bitwise_twin": True})
+          "all_within_tol": True, "all_within_walk_tol": True,
+          "bitwise_twin": True, "bitwise_repeat": True,
+          "k2_equals_k1_at_c1": True})
 
     cfg = get_config("gemma-2b")     # full width, bf16 compute
     t0 = time.perf_counter()

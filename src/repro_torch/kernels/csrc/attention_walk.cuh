@@ -1,12 +1,13 @@
-// Shared device code of the port's attention kernels for NVIDIA Hopper
-// (sm_90a): paged chunked prefill (K1) and paged decode (K2) in
-// paged_attention/csrc/paged_prefill_attention.cu, and flash attention's
-// float32 path (K3) in flash_attention/csrc/flash_attention.cu. K3's bf16
-// path (tensor cores) and the contiguous-cache decode (K4, split over keys)
-// no longer use its walk (K4 takes only its type conversions and
-// warp_sum); their other helpers are in hopper.cuh.
+// Shared device code of the port's float32 attention walks for NVIDIA
+// Hopper (sm_90a): paged chunked prefill at C > 1 (K1,
+// paged_attention/csrc/paged_prefill_attention.cu, paged_walk_kernel) and
+// flash attention (K3, flash_attention/csrc/flash_attention.cu,
+// flash_kernel). They serve the f32 parity runs. The bf16 paths of K1 and
+// K3 run on the tensor cores, and every decode-shaped call (K1 at C = 1,
+// K2, K4) is split over its keys (split_k.cuh); those take only this
+// file's type conversions and warp_sum.
 //
-// All of them compute one function: each query row attends, with an online
+// Both walks compute one function: each query row attends, with an online
 // softmax in float32, to the keys visible to it, where key kpos is visible
 // iff  kpos <= qpos  and  kpos < kv_len  (qpos and kv_len per row). They
 // differ only in where the keys live (pool pages through a page table, or a
@@ -14,16 +15,17 @@
 // their arguments. ``attend`` is the walk they share.
 //
 // What bounds them on the card is the bytes of K/V they read, against
-// 3.35 TB/s of HBM. One block owns kWarps query rows that share one kv head
-// (chunk positions x the g q-heads of that kv head), one warp per row; the
-// keys are walked in tiles of TILE rows, each staged in shared memory once
-// and read by every row of the block, so on gemma-2b (8 q-heads on one kv
-// head) a tile serves 8 heads. Tiles go in with 16-byte cp.async copies into
-// two buffers: the copy of tile j+1 runs while tile j is computed. Each lane
-// holds d/32 elements of q and dv/32 of the running output; dot products are
-// warp reductions over d. Masked keys enter no p.V product at all, and their
-// scores are replaced, not multiplied, so a NaN in a stale pool slot or in
-// the unfilled rows of a partial tile cannot reach the output.
+// 3.35 TB/s of HBM, but exact float32 products on the CUDA cores and one
+// block per 8 query rows keep them well above that. One block owns kWarps
+// query rows that share one kv head (positions x the g q-heads of that kv
+// head), one warp per row; the keys are walked in tiles of TILE rows, each
+// staged in shared memory once and read by every row of the block. Tiles
+// go in with 16-byte cp.async copies into two buffers: the copy of tile
+// j+1 runs while tile j is computed. Each lane holds d/32 elements of q
+// and dv/32 of the running output; dot products are warp reductions over
+// d. Masked keys enter no p.V product at all, and their scores are
+// replaced, not multiplied, so a NaN in a stale pool slot or in the
+// unfilled rows of a partial tile cannot reach the output.
 
 #pragma once
 

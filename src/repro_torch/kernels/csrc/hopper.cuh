@@ -1,7 +1,9 @@
 // Device helpers of the port's redesigned attention kernels for NVIDIA
-// Hopper (sm_90a): flash attention's bf16 path (K3,
-// flash_attention/csrc/flash_attention.cu) and the split-K decode over a
-// contiguous cache (K4, decode_attention/csrc/decode_attention.cu).
+// Hopper (sm_90a): the bf16 tensor-core paths of paged prefill (K1,
+// paged_attention/csrc/paged_prefill_attention.cu) and flash attention (K3,
+// flash_attention/csrc/flash_attention.cu), and the split-K decodes
+// (split_k.cuh: K1 at C = 1 and K2 over pool pages, K4 over a contiguous
+// cache).
 //
 // - cp.async of 16 bytes that zero-fills when the source row does not exist,
 //   so a ragged tile's missing rows are zeros in shared memory, never stale

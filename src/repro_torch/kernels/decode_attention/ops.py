@@ -37,15 +37,16 @@ def load_kernel():
 
 
 def split_plan(S: int, b: int, hkv: int, n_sm: int,
-               max_split: int = MAX_SPLIT):
+               max_split: int = MAX_SPLIT, align: int = SPLIT_ALIGN):
     """(split, n_split): keys per block of the kernel's first pass and the
     number of ranges covering S. Enough ranges for b * hkv * n_split blocks
-    to fill every SM once (``n_sm``), each a multiple of SPLIT_ALIGN keys,
-    at most ``max_split``; where S is too short for that, splits of
-    SPLIT_ALIGN keys. Depends on the shapes only, never on the lengths."""
+    to fill every SM once (``n_sm``), each a multiple of ``align`` keys, at
+    most ``max_split``; where S is too short for that, splits of ``align``
+    keys. Depends on the shapes only, never on the lengths. The paged
+    kernels (K1, K2) plan with ``align`` a page or a key tile."""
     want = -(-n_sm // max(b * hkv, 1))       # ranges per (row, kv head)
-    split = S // want // SPLIT_ALIGN * SPLIT_ALIGN
-    split = min(max(split, SPLIT_ALIGN), max_split, S)
+    split = S // want // align * align
+    split = min(max(split, align), max_split, S)
     return split, -(-S // split)
 
 
@@ -60,13 +61,19 @@ def smem_bytes(split: int, g: int, d: int, dv: int, es: int) -> int:
             + r16(g * 8) + 128 * 8 * 4)
 
 
-def _max_split(g: int, d: int, dv: int, es: int) -> int:
-    """The most keys (a multiple of SPLIT_ALIGN, at most MAX_SPLIT) whose
-    first-pass block fits an H100's shared memory."""
-    split = MAX_SPLIT
-    while split > SPLIT_ALIGN and smem_bytes(split, g, d, dv, es) \
-            > SMEM_BYTES:
-        split -= SPLIT_ALIGN
+def _max_split(g: int, d: int, dv: int, es: int, align: int = SPLIT_ALIGN,
+               id_bytes: int = 0) -> int:
+    """The most keys (a multiple of ``align``, at most MAX_SPLIT) whose
+    first-pass block fits an H100's shared memory: ``smem_bytes``, then
+    ``id_bytes`` per ``align`` keys rounded up to 16 bytes (the paged
+    decode's page ids, 4 bytes a page, with ``align`` the page size)."""
+    def used(split):
+        return smem_bytes(split, g, d, dv, es) \
+            + (split // align * id_bytes + 15) // 16 * 16
+
+    split = MAX_SPLIT // align * align
+    while split > align and used(split) > SMEM_BYTES:
+        split -= align
     return split
 
 

@@ -100,7 +100,11 @@ DTYPES = [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)]
 # walk with P rounded to bf16, the split-K decode from the kernel's plan),
 # in float32 out: bf16 outputs are one rounding apart, at most half a bf16
 # ulp (2^-8 relative); K3 also flips a rare rounding of P.
-TIGHT = {"K3": {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-3, 4e-3)},
+# K1 (tensor-core tiles at C > 1) as K3; K2 and K1 at C = 1 (the split
+# decode) as K4, but K1 keeps K3's looser bound at every C.
+TIGHT = {"K1": {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-3, 4e-3)},
+         "K2": {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-4, 4e-3)},
+         "K3": {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-3, 4e-3)},
          "K4": {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-4, 4e-3)}}
 
 
@@ -111,6 +115,40 @@ def cuda():
     return torch.device("cuda")
 
 
+def _k1_walk(args, pairing):
+    """The walk K1 runs for these CUDA tensors (its plan's key ranges; P
+    rounded to bf16 on the tensor cores), in float32."""
+    q, k, v, lens, vals, pt = args
+    plan = ops.kernel_plan(q, k, v, pt)
+    return ref.paged_prefill_attention_tiled_ref(
+        q.float(), k.float(), v.float(), lens, vals, pt,
+        split=plan["split"], pairing=pairing,
+        p_dtype=q.dtype if plan["route"] == "tensor_cores" else None)
+
+
+def _check_k1(args, pairing, dtype, tol):
+    """K1 against its plain version (``tol``) and its walk (TIGHT), equal
+    bits on a second call and from the gathered-view twin; one launch
+    counted per call."""
+    before = ops.paged_prefill_attention.launches
+    got = ops.paged_prefill_attention(*args, pairing=pairing)
+    again = ops.paged_prefill_attention(*args, pairing=pairing)
+    want = ref.paged_prefill_attention_ref(*args, pairing=pairing)
+    walk = _k1_walk(args, pairing)
+    torch.cuda.synchronize()
+    assert ops.paged_prefill_attention.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+    atol, rtol = TIGHT["K1"][dtype]
+    torch.testing.assert_close(got.float(), walk, atol=atol, rtol=rtol)
+    q, k, v, lens, vals, pt = args
+    twin = ops.paged_prefill_attention_contig(
+        q, ref.gather_pages(k, pt), ref.gather_pages(v, pt), lens, vals, pt,
+        pairing=pairing)
+    assert torch.equal(got, twin)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
@@ -118,21 +156,51 @@ def cuda():
 @pytest.mark.parametrize("shape,C", CASES)
 def test_cuda_kernel_matches_plain(cuda, shape, C, pairing, dtype, tol):
     """bf16: one bf16 rounding apart at outputs below ~1.5; f32: another
-    summation order. The gathered-view twin is equal bit for bit."""
+    summation order. Against the walk it runs (TIGHT); the gathered-view
+    twin and a second call are equal bit for bit."""
     args = [torch.from_numpy(x).to(cuda) for x in case(shape, C)]
     args[:3] = [x.to(dtype) for x in args[:3]]
-    before = ops.paged_prefill_attention.launches
-    got = ops.paged_prefill_attention(*args, pairing=pairing)
-    want = ref.paged_prefill_attention_ref(*args, pairing=pairing)
+    _check_k1(args, pairing, dtype, tol)
+
+
+# (b, C, npages) at gemma-2b's heads and pages (hq 8, hkv 1, d 256, blk 16):
+# the megastep's prefill bucket and the legacy chunk (key ranges split),
+# the C = 256 bucket (one range), and a decode step (C = 1)
+GEMMA_PAGED = [(8, 32, 64), (1, 32, 64), (8, 256, 64), (8, 1, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pairing", ["kv_major", "g_major"])
+@pytest.mark.parametrize("b,C,npages", GEMMA_PAGED)
+def test_cuda_kernel_at_the_paths_shapes(cuda, b, C, npages, pairing):
+    """K1 in bf16 at the serving paths' shapes, split or not as its plan
+    says; the twin has the same shapes, so the same plan and bits."""
+    args = [torch.from_numpy(x).to(cuda) for x in
+            mixed_case(b, C, 8, 1, 256, 256, 16, npages, seed=b + C)]
+    args[:3] = [x.to(torch.bfloat16) for x in args[:3]]
+    plan = ops.kernel_plan(*args[:3], args[5])
+    assert plan["route"] == ("split" if C == 1 else "tensor_cores")
+    _check_k1(args, pairing, torch.bfloat16, 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pairing", ["kv_major", "g_major"])
+@pytest.mark.parametrize("blk", [8, 16])
+def test_k2_equals_k1_at_c1(cuda, blk, pairing, dtype):
+    """K2 at lens = cache_lens + 1 runs K1's C = 1 kernel and plan: equal
+    bits on every row with valids = 1."""
+    q, k, v, lens, vals, pt = (torch.from_numpy(x).to(cuda) for x in
+                               mixed_case(6, 1, 8, 1, 256, 256, blk, 8,
+                                          seed=blk))
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    k1 = ops.paged_prefill_attention(q, k, v, lens, vals, pt,
+                                     pairing=pairing)
+    k2 = ops.paged_attention(q, k, v, lens + 1, pt, pairing=pairing)
     torch.cuda.synchronize()
-    assert ops.paged_prefill_attention.launches == before + 1
-    torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                               rtol=tol)
-    q, k, v, lens, vals, pt = args
-    twin = ops.paged_prefill_attention_contig(
-        q, ref.gather_pages(k, pt), ref.gather_pages(v, pt), lens, vals, pt,
-        pairing=pairing)
-    assert torch.equal(got, twin)
+    rows = vals == 1
+    assert rows.any() and (~rows).any()
+    assert torch.equal(k1[rows], k2[rows])
 
 
 @pytest.mark.gpu
@@ -162,18 +230,27 @@ def test_cuda_kernel_refuses_what_it_does_not_take(cuda):
 def test_paged_decode_kernel_matches_plain(cuda, shape, blk, pairing, dtype,
                                            tol):
     """K2: bf16 is one rounding of the f32 result apart; f32 another
-    summation order."""
+    summation order. Against the split walk it runs (TIGHT); equal bits on
+    a second call."""
     args = [torch.from_numpy(x).to(cuda)
             for x in decode_case(*shape[:5], blk, shape[5], seed=blk)]
     args[:3] = [x.to(dtype) for x in args[:3]]
     q = args[0][:, None]
     before = ops.paged_attention.launches
     got = ops.paged_attention(q, *args[1:], pairing=pairing)
+    again = ops.paged_attention(q, *args[1:], pairing=pairing)
     want = ref.paged_attention_ref(*args, pairing=pairing)
+    split = ops.kernel_plan(q, args[1], args[2], args[4])["split"]
+    walk = ref.paged_attention_split_ref(
+        args[0].float(), args[1].float(), args[2].float(), *args[3:],
+        split=split, pairing=pairing)
     torch.cuda.synchronize()
-    assert ops.paged_attention.launches == before + 1
+    assert ops.paged_attention.launches == before + 2
+    assert torch.equal(got, again)
     torch.testing.assert_close(got[:, 0].float(), want.float(), atol=tol,
                                rtol=tol)
+    atol, rtol = TIGHT["K2"][dtype]
+    torch.testing.assert_close(got[:, 0].float(), walk, atol=atol, rtol=rtol)
 
 
 @pytest.mark.gpu
