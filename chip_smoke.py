@@ -40,7 +40,11 @@ Phases, each printing one JSON line (several for the kernel cases):
               K5 SSD chunked scan (bf16 within 2e-2, f32 within 1e-4):
                  mamba2-370m heads at b=4, s=512 (two chunks), zamba2-7b
                  heads at b=1, s=512, a ragged single chunk (s=100), two
-                 B/C groups, an initial state.
+                 B/C groups, an initial state; each row gives the plan
+                 (bf16: two tensor-core kernels, their grids, C.B^T
+                 once per group, the operand splits), is held to the walk
+                 the kernels run at a tighter tolerance and to a second
+                 call bit for bit.
               Times the kernel, the plain version and one PyTorch library
               call (SDPA; none computes K5), beside the least time the card
               could take.
@@ -109,7 +113,14 @@ LOCKSTEP_TOL = 2e-3                     # test_decode_matches_full_forward's
 WALK_TOL = {("K1", "bfloat16"): (2e-3, 4e-3), ("K1", "float32"): (1e-5, 1e-5),
             ("K2", "bfloat16"): (1e-4, 4e-3), ("K2", "float32"): (1e-5, 1e-5),
             ("K3", "bfloat16"): (2e-3, 4e-3), ("K3", "float32"): (1e-5, 1e-5),
-            ("K4", "bfloat16"): (1e-4, 4e-3), ("K4", "float32"): (1e-5, 1e-5)}
+            ("K4", "bfloat16"): (1e-4, 4e-3), ("K4", "float32"): (1e-5, 1e-5),
+            # K5 against ssd_chunked_tiled_ref (y before its last rounding,
+            # and the final state): a bf16 y is half a bf16 ulp from it,
+            # moved also by a rounding of M or w that lands the other way
+            # after another summation order, and beyond the bound by one
+            # bf16 ulp of y_diag (_walk_check's slack), whose rounding may
+            # land the other way too; f32 differs by summation order
+            ("K5", "bfloat16"): (2e-3, 4e-3), ("K5", "float32"): (1e-5, 1e-5)}
 # device kernels of K1-K5 by name, for the profiler's shares. K2 runs K1's
 # C = 1 kernels, so a profile cannot tell K2 from K1 at C = 1:
 # _profile_calls refuses a window that launches them
@@ -118,7 +129,7 @@ KERNEL_NAMES = {"K1": ("paged_walk_kernel", "paged_tc_kernel",
                 "K2": ("paged_split_kernel", "paged_merge_kernel"),
                 "K3": ("flash_kernel", "flash_tc_kernel"),
                 "K4": ("decode_split_kernel", "decode_merge_kernel"),
-                "K5": ("ssd_kernel",)}
+                "K5": ("ssd_f32_kernel", "ssd_chunk_kernel", "ssd_out_kernel")}
 # the workload of the serving paths: agents, new tokens per turn (base +
 # a per-agent jitter), and the prompt cap in tokens
 N_AGENTS, NEW_TOKENS, JITTER, PROMPT_CAP = 6, 16, 8, 384
@@ -220,18 +231,24 @@ def measure(torch, flush, kernel: str, case: dict, dname: str, fn, plain,
     return row
 
 
-def _walk_check(torch, kernel: str, row: dict, got, want) -> dict:
+def _walk_check(torch, kernel: str, row: dict, got, want,
+                slack=None) -> dict:
     """The kernel's output against the plain version of the walk it runs,
-    within WALK_TOL; adds the error and tolerance to the case's row."""
+    within WALK_TOL (|got - want| <= atol + rtol |want|, plus ``slack``
+    per element where given); adds the error and tolerance to the case's
+    row."""
     atol, rtol = WALK_TOL[(kernel, row["dtype"])]
-    err = (got.float() - want).abs().max().item()
-    if not torch.allclose(got.float(), want, atol=atol, rtol=rtol):
+    diff = (got.float() - want).abs()
+    err = diff.max().item()
+    bound = atol + rtol * want.abs() + (0 if slack is None else slack)
+    if not (diff <= bound).all():
         raise AssertionError(f"{kernel} {row}: {err} from its walk, beyond "
                              f"atol {atol} rtol {rtol}")
     row.update(walk_max_abs_err=err, walk_tol=[atol, rtol])
     emit({"phase": "kernel_walk", "kernel": kernel,
           **{k: row[k] for k in row if k in ("b", "C", "sq", "hq", "S",
-                                             "lens", "max_len", "dtype")},
+                                             "lens", "max_len", "shape",
+                                             "dtype")},
           "walk_max_abs_err": err, "walk_tol": [atol, rtol]})
     return row
 
@@ -531,7 +548,10 @@ def ssd_cases(torch, flush):
     s = 512 (two chunks of 256; its prefill), zamba2-7b's at b = 1, s = 512
     (its forward), a ragged single chunk (s = 100), two B/C groups, and an
     initial state. x, B and C are strided views of one conv-output-like
-    tensor, as ``mamba_full`` hands them over."""
+    tensor, as ``mamba_full`` hands them over. Each row gives the plan
+    (``ops.kernel_plan``: route, grids, heads per block, splits); each case
+    is held to the walk the kernels run at WALK_TOL and to a second call
+    bit for bit."""
     from repro_torch.kernels.ssd import ops, ref
     rows = []
     shapes = [  # name, b, s, h, p, g, n, initial state
@@ -555,15 +575,29 @@ def ssd_cases(torch, flush):
                           device="cuda") * 0.5 if init else None)
         dname = _dname(dtype)
         L = min(256, s)
-        rows.append(measure(
+        plan = ops.kernel_plan(b, s, h, p, g, n, 256, dtype)
+
+        def both():
+            return torch.cat([t.float().flatten()
+                              for t in ops.ssd(x, dt, A, B, C, 256, st)])
+
+        out = _repeat_check(torch, f"K5 {name} {dname}", both)
+        row = measure(
             torch, flush, "K5", {"shape": name, "b": b, "s": s, "h": h,
                                  "p": p, "g": g, "n": n, "L": L,
-                                 "initial_state": init}, dname,
+                                 "initial_state": init, **plan,
+                                 "bitwise_repeat": True}, dname,
             lambda: ops.ssd(x, dt, A, B, C, 256, st),
             lambda: ref.ssd_chunked_ref(x, dt, A, B, C, 256, st),
             None, None,
             _ssd_bound(b, s, h, p, g, n, L, xbc.element_size(), init, dname),
-            tol=SSD_TOL[dname]))
+            tol=SSD_TOL[dname])
+        wy, wst, y_diag = ref.ssd_chunked_tiled_ref(x, dt, A, B, C, 256, st,
+                                                    diag=True)
+        slack = torch.cat([ref.ulp(y_diag, dtype).flatten(),
+                           torch.zeros_like(wst).flatten()])
+        rows.append(_walk_check(torch, "K5", row, out, torch.cat(
+            [wy.flatten(), wst.flatten()]), slack))
     return rows
 
 
@@ -1273,6 +1307,26 @@ def hybrid_phase(torch, seed: int, s: int = 512, steps: int = 32,
 
 # ----------------------------------------------------------------- run
 
+def _kernel_name(mangled: str) -> str:
+    """name<template args> of a mangled kernel: the length-prefixed
+    identifier ending in _kernel (a namespace hash may hold digits just
+    before its length), then its int and type arguments."""
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(len(m.group())):
+            size = int(m.group()[i:])
+            ident = mangled[m.end():m.end() + size]
+            if len(ident) == size and ident.endswith("_kernel"):
+                rest = mangled[m.end() + size:]
+                t = re.match(r"I(.*?)EEv", rest)
+                targs = t.group(1) if t else ""
+                ty = ("float" if targs.startswith("f") else
+                      "bf16" if "bfloat16" in targs else None)
+                args = ([ty] if ty else []) + re.findall(r"L[ib](\d+)E",
+                                                         targs)
+                return f"{ident}<{','.join(args)}>" if t else ident
+    return mangled[:60]
+
+
 def _ptxas(log: str) -> list:
     """ptxas's report per kernel: [name<template args>, registers, spill
     stores in bytes]."""
@@ -1280,13 +1334,7 @@ def _ptxas(log: str) -> list:
     for ln in log.splitlines():
         m = re.search(r"Function properties for (\S+)", ln)
         if m:
-            k = re.search(r"([a-z_]+_kernel)I(.*?)EEv", m.group(1))
-            targs = k.group(2) if k else ""
-            ty = ("float" if targs.startswith("f") else
-                  "bf16" if "bfloat16" in targs else None)
-            args = ([ty] if ty else []) + re.findall(r"L[ib](\d+)E", targs)
-            name = f"{k.group(1)}<{','.join(args)}>" if k \
-                else m.group(1)[:60]
+            name = _kernel_name(m.group(1))
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m and name:
             out.append([name, None, int(m.group(1))])

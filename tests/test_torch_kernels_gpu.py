@@ -343,6 +343,8 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
 # two B/C groups, the other head dims, an initial state
 SSD_SHAPES = [(1, 512, 4, 64, 1, 128, 256, False),
               (1, 512, 4, 64, 1, 64, 256, False),
+              (4, 512, 32, 64, 1, 128, 256, False),    # mamba2-370m prefill
+              (1, 512, 112, 64, 1, 64, 256, False),    # zamba2-7b forward
               (2, 100, 4, 64, 1, 128, 256, False),
               (2, 128, 8, 32, 2, 64, 64, False),
               (2, 96, 4, 16, 1, 16, 32, False),
@@ -352,6 +354,13 @@ SSD_SHAPES = [(1, 512, 4, 64, 1, 128, 256, False),
 # a rounding of m flips where the f32 sums before it differ; f32: another
 # summation order
 SSD_DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+# (atol, rtol) against the walk the kernels run (ssd_chunked_tiled_ref, y
+# before its last rounding, float32): a bf16 y is at most half a bf16 ulp
+# (2^-8 relative) from it, moved also by a rounding of M or w that lands the
+# other way after another summation order; beyond that, one bf16 ulp of the
+# walk's y_diag, whose rounding may land the other way too; the state and
+# f32 differ by summation order only
+SSD_WALK = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-3, 4e-3)}
 
 
 def ssd_case(b, s, h, p, g, n, seed, init=False):
@@ -397,6 +406,28 @@ def test_ssd_kernel_matches_plain(cuda, shape, dtype, tol):
     assert y.dtype == dtype and state.dtype == torch.float32
     torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(state, want_state, atol=tol, rtol=tol)
+    walk_y, walk_state, y_diag = ssd_ref.ssd_chunked_tiled_ref(
+        x, dt, A, B, C, chunk, st, diag=True)
+    atol, rtol = SSD_WALK[dtype]
+    err = (y.float() - walk_y).abs() - rtol * walk_y.abs() \
+        - ssd_ref.ulp(y_diag, dtype)
+    assert err.max().item() <= atol
+    torch.testing.assert_close(state, walk_state, atol=atol, rtol=rtol)
+    y2, state2 = ssd_ops.ssd(x, dt, A, B, C, chunk, st)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(state, state2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p,L", [(128, 64, 256), (64, 64, 256),
+                                   (16, 16, 8), (48, 32, 100),
+                                   (64, 128, 64)])
+def test_ssd_plan_matches_the_kernels(cuda, n, p, L):
+    """The shared memory ``kernel_plan`` checks is what the kernels ask
+    for."""
+    for kernel in ("f32", "chunk", "out"):
+        assert ssd_ops.built_smem_bytes(kernel, n, p, L) == \
+            ssd_ops.smem_bytes(kernel, n, p, L)
 
 
 @pytest.mark.gpu
@@ -418,4 +449,20 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
         ssd_ops.ssd(x[..., :8], dt, A, B, C, 16)
     with pytest.raises(ValueError, match="not divisible"):
         ssd_ops.ssd(x, dt, A, B, C, 24)
+    # bf16: x, B and C rows off 16-byte boundaries (the conv output one
+    # element wider, sliced from its second element), a d_state off 16
+    b, s = 2, 32
+    xbc = torch.randn((b, s, h * p + 2 * g * n + 1), device=cuda,
+                      dtype=torch.bfloat16)
+    parts = torch.split(xbc[..., 1:], [h * p, g * n, g * n], dim=-1)
+    xm, Bm, Cm = (parts[0].unflatten(-1, (h, p)),
+                  parts[1].unflatten(-1, (g, n)),
+                  parts[2].unflatten(-1, (g, n)))
+    xa, Ba, Ca = (t.to(torch.bfloat16) for t in (x, B, C))
+    for args in ((xm, Ba, Ca), (xa, Bm, Ca), (xa, Ba, Cm)):
+        with pytest.raises(ValueError, match="16-byte"):
+            ssd_ops.ssd(args[0], dt, A, args[1], args[2], 16)
+    with pytest.raises(ValueError, match="d_state"):
+        ssd_ops.ssd(xa, dt, A, Ba[..., :8].contiguous(),
+                    Ca[..., :8].contiguous(), 16)
     assert ssd_ops.ssd.launches == before
