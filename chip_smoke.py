@@ -64,18 +64,35 @@ Phases, each printing one JSON line (several for the kernel cases):
               max_len 1024): K3 per prefill, K4 per decode step. Checks every
               turn completes, the launch counts and a deterministic replay,
               and profiles a decode step with all 4 slots busy.
-7. lockstep — full-width gemma-2b in float32, b=2, s=64: ``forward`` logits
+7. serve    — the serving CLI, ``repro_torch.launch.serve.main(argv)`` in
+              this process at full gemma-2b (bf16, the CLI's defaults:
+              pages of 8, 129 blocks, 4 rows, max_len 192), five runs:
+              (a) --paged --token-budget 64 with a journal, a disk tier,
+              a Chrome trace and a metrics dump; (b) --fleet 2 with a
+              shared journal and --kill 0; (c) --fleet 2 --drain 1;
+              (d) --autopilot; (e) the dense engine. Checks every turn
+              completes (the resubmitted ones too), the kill's "lost 1"
+              and the drain's "drained 1", the trace and the dump, one
+              dispatch per step, and the launches: K1 = n_layers x steps
+              on (a)-(d), K3 and K4 alone on (e), counted from the
+              AgentRM's construction (after compile_buckets). Then
+              ``python -m repro_torch.launch.serve`` as a subprocess, and
+              at float32, full width, the library's recovery paths against
+              a run without faults: a crash restored from the journal, a
+              fluid migration mid-decode, a disk-tier hibernate/wake, a
+              poisoned row.
+8. lockstep — full-width gemma-2b in float32, b=2, s=64: ``forward`` logits
               (K3) against ``decode_step`` fed token by token at a scalar
               cache_len (K4), within 2e-3, and ``prefill`` + ``decode_step``
               against ``forward`` on the next token.
-8. ssm      — full-width, full-depth mamba2-370m (48 layers) in bf16:
+9. ssm      — full-width, full-depth mamba2-370m (48 layers) in bf16:
               ``prefill`` of 4 prompts of 512 tokens (K5 in every layer),
               32 greedy ``decode_step``s, a replay with the same tokens,
               a profiled prefill and decode step; then f32, b=2: ``forward`` over 512 tokens against
               ``decode_step`` token by token at every position, and
               ``prefill`` of 255 + one ``decode_step`` against ``forward``
               over 256, within 2e-3, the next token equal.
-9. hybrid   — full-width zamba2-7b in bf16 at full depth (81 layers):
+10. hybrid  — full-width zamba2-7b in bf16 at full depth (81 layers):
               ``forward`` over b=1, s=512 (K3 per group, K5 per Mamba-2
               layer), 32 ``decode_step``s from position 0 (K4 per group),
               a profiled forward and decode step; then f32 at a depth cut
@@ -96,6 +113,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -991,6 +1009,401 @@ def dense_phase(torch, cfg, params, prompts):
     }
 
 
+# --------------------------------------------------------------- serve
+
+SERVE_DIR = ROOT / "build" / "serve"     # journals, spills, trace, dump
+# the serving CLI's five runs, at its own defaults (pages of 8, 129
+# blocks, 4 rows, max_len 192) but at full gemma-2b; {d} is SERVE_DIR
+SERVE_RUNS = {
+    "a_paged": ["--paged", "--token-budget", "64", "--agents", "3",
+                "--turns", "9", "--journal-dir", "{d}/a/journal",
+                "--spill-dir", "{d}/a/spill", "--trace-out",
+                "{d}/a/trace.json", "--metrics-dump", "{d}/a/metrics.json"],
+    "b_fleet_kill": ["--paged", "--fleet", "2", "--agents", "4", "--turns",
+                     "12", "--journal-dir", "{d}/b/journal", "--kill", "0"],
+    "c_fleet_drain": ["--paged", "--fleet", "2", "--drain", "1"],
+    "d_autopilot": ["--paged", "--autopilot"],
+    "e_dense": [],
+}
+
+
+def _registry_q(metrics, names, suffix: str, q: float):
+    """The CLI summary's quantile (``print_obs_summary``): the engines'
+    histograms merged bucket-wise; None where none recorded a sample."""
+    from repro_torch.obs.metrics import Histogram
+    hs = [h for h in (metrics.get(f"{n}.{suffix}") for n in names)
+          if h is not None and h.count]
+    if not hs:
+        return None
+    merged = Histogram("merged", hs[0].bounds)
+    for h in hs:
+        merged.counts = merged.counts + h.counts
+        merged.count += h.count
+        merged.sum += h.sum
+        merged.min = min(merged.min, h.min)
+        merged.max = max(merged.max, h.max)
+    return merged.quantile(q)
+
+
+def _cli_run(torch, cfg, name: str, argv: list) -> dict:
+    """``repro_torch.launch.serve.main(argv)`` in this process, its stdout
+    captured. The CLI builds its AgentRM once its engines are built and
+    their buckets run (``compile_buckets``), so the launch counts are set
+    to 0 there, and those warm-up calls are not counted; the AgentRM it
+    builds is kept to read the registry and the engines afterwards."""
+    import contextlib
+    import io
+    from repro_torch.distributed.elastic import FleetBackend
+    from repro_torch.launch import serve
+
+    seen = {}
+
+    class Observed(serve.AgentRM):
+        def __init__(self, backend, *a, **kw):
+            if isinstance(backend, FleetBackend):
+                _watch_kill(torch, backend, seen)
+            reset_counts()
+            seen["rm"] = self
+            seen["t0"] = time.perf_counter()
+            super().__init__(backend, *a, **kw)
+
+        def shutdown(self):
+            seen.setdefault("t1", time.perf_counter())
+            super().shutdown()
+
+    out = io.StringIO()
+    plain = serve.AgentRM
+    serve.AgentRM = Observed
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = serve.main(["--arch", cfg.name] + argv)
+    finally:
+        serve.AgentRM = plain
+    threads = [t.name for t in threading.enumerate()
+               if t is not threading.main_thread()]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    text = out.getvalue()
+    if rc != 0:
+        raise AssertionError(f"serve {name}: exit code {rc}")
+    rm = seen["rm"]
+    fleet = rm.backend if isinstance(rm.backend, FleetBackend) else None
+    engines = ([m.backend.engine for m in fleet.members] if fleet
+               else [rm.backend.engine])
+    names = [e.name for e in engines] if fleet else ["engine"]
+    turns = int(argv[argv.index("--turns") + 1]) if "--turns" in argv else 9
+    served = re.findall(r"^\[serve\] agent-\d+ -> tok:", text, re.M)
+    if len(served) != turns or "TIMED OUT" in text or "giving up" in text:
+        raise AssertionError(f"serve {name}: {len(served)} of {turns} turns "
+                             f"completed:\n{text[-3000:]}")
+    m = rm.obs.metrics
+    row = {"argv": argv, "turns": turns, "wall_s": seen["t1"] - seen["t0"],
+           "turns_per_s": turns / (seen["t1"] - seen["t0"]),
+           "engines": names, "launches": counts,
+           "lost_turns_resubmitted": text.count("ENGINE LOST mid-turn")}
+    if "--paged" in argv:
+        steps = sum(int(m.get(f"{n}.steps_dispatched").value) for n in names)
+        disp = sum(int(m.get(f"{n}.jit_dispatches").value) for n in names)
+        said = re.search(r"jit dispatches (\d+) over (\d+) steps", text)
+        if not (disp == steps == int(said.group(1)) == int(said.group(2))
+                and steps > 0):
+            raise AssertionError(f"serve {name}: {disp} dispatches over "
+                                 f"{steps} steps, the summary says "
+                                 f"{said.group(0)}")
+        _expect(f"serve {name}", counts, {"K1": cfg.n_layers * steps})
+        row.update(steps=steps, **{
+            key: _registry_q(m, names, suffix, q) for key, suffix, q in (
+                ("ttft_p95_s", "ttft_s", .95), ("itl_p95_s", "itl_s", .95),
+                ("step_p50_s", "step_s", .5), ("step_p95_s", "step_s", .95))})
+    else:
+        decode_steps = engines[0].steps_dispatched
+        prefills = engines[0].jit_dispatches - decode_steps
+        if prefills != turns:
+            raise AssertionError(f"serve {name}: {prefills} prefills for "
+                                 f"{turns} turns")
+        _expect(f"serve {name}", counts, {"K3": cfg.n_layers * prefills,
+                                          "K4": cfg.n_layers * decode_steps})
+        row.update(prefills=prefills, decode_steps=decode_steps)
+    if fleet is not None:
+        fs = fleet.fleet_stats()
+        row["fleet"] = {k: fs[k] for k in (
+            "engines_active", "engines_lost", "engines_drained",
+            "migrations_sudden", "migrations_fluid", "sessions_failed_over")}
+        row["fleet_line"] = re.search(r"^\[serve\] fleet: .*$", text,
+                                      re.M).group(0)
+    for key in ("mem_before_kill", "mem_after_kill"):
+        if key in seen:
+            row[key] = seen[key]
+    if "--autopilot" in argv:
+        row["autopilot_line"] = re.search(r"^\[serve\] autopilot: .*$", text,
+                                          re.M).group(0)
+    row["stdout_tail"] = text.splitlines()[-6:]
+    del seen, rm, fleet, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["mem_after_run"] = torch.cuda.memory_allocated()
+    row["threads_after_run"] = threads
+    return row
+
+
+def _watch_kill(torch, fleet, seen: dict):
+    """Record the card's allocated bytes when the CLI kills a member and
+    once the fleet has processed the loss (a reading, not a gate)."""
+    kill, lose = fleet.kill_engine, fleet._kill_member
+
+    def kill_engine(idx):
+        seen["mem_before_kill"] = torch.cuda.memory_allocated()
+        return kill(idx)
+
+    def kill_member(*a, **kw):
+        out = lose(*a, **kw)
+        seen["mem_after_kill"] = torch.cuda.memory_allocated()
+        return out
+
+    fleet.kill_engine, fleet._kill_member = kill_engine, kill_member
+
+
+def _serve_checks(torch, cfg) -> dict:
+    """The outcomes the CLI runs promise beyond completing every turn."""
+    import json as _json
+    from repro_torch.obs import validate_chrome
+    d = SERVE_DIR
+    runs = {}
+    for name, argv in SERVE_RUNS.items():
+        runs[name] = _cli_run(torch, cfg, name,
+                              [a.replace("{d}", str(d)) for a in argv])
+    problems = validate_chrome(_json.loads((d / "a/trace.json").read_text()))
+    if problems:
+        raise AssertionError(f"serve a_paged: trace invalid: {problems[:5]}")
+    if not _json.loads((d / "a/metrics.json").read_text()):
+        raise AssertionError("serve a_paged: empty metrics dump")
+    if not any(p.suffix == ".npz" for p in (d / "a/journal").iterdir()):
+        raise AssertionError("serve a_paged: nothing journaled")
+    b, c = runs["b_fleet_kill"], runs["c_fleet_drain"]
+    if b["fleet"]["engines_lost"] != 1 or " lost 1 " not in b["fleet_line"]:
+        raise AssertionError(f"serve b_fleet_kill: {b['fleet_line']}")
+    if c["fleet"]["engines_drained"] != 1 or c["lost_turns_resubmitted"] \
+            or " drained 1 " not in c["fleet_line"]:
+        raise AssertionError(f"serve c_fleet_drain: {c['fleet_line']}")
+    return runs
+
+
+def _serve_subprocess(cfg) -> dict:
+    """The entry point as users start it."""
+    import os
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            cfg.name, "--paged", "--agents", "3", "--turns", "6"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    served = re.findall(r"^\[serve\] agent-\d+ -> tok:", out.stdout, re.M)
+    if out.returncode != 0 or len(served) != 6:
+        raise AssertionError(f"python -m repro_torch.launch.serve: exit "
+                             f"{out.returncode}, {len(served)} of 6 turns\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    return {"argv": argv[1:], "returncode": 0, "turns": 6, "wall_s": wall,
+            "summary": [ln for ln in out.stdout.splitlines()
+                        if ln.startswith("[serve] ttft")]}
+
+
+def _drive_turns(be, agents: dict, max_steps: int = 400) -> tuple:
+    """One turn per agent straight on a backend, stepped until each ends:
+    ({agent: text}, {agent: typed error})."""
+    rids = {be.begin_turn(a, "", p): a for a, p in agents.items()}
+    outs, errs = {}, {}
+    for _ in range(max_steps):
+        if not rids:
+            break
+        rep = be.step()
+        for rid, err in rep.failed:
+            if rid in rids:
+                errs[rids.pop(rid)] = err
+        for rid in rep.finished:
+            if rid in rids:
+                outs[rids.pop(rid)] = be.collect(rid)
+    if rids:
+        raise AssertionError(f"turns never finished: {rids}")
+    return outs, errs
+
+
+def _bitexact_checks(torch, cfg32, params) -> dict:
+    """The library's recovery paths at float32, full width, each against a
+    run on one engine without faults on the same schedule:
+    ``test_chaos.py``'s crash restore and poisoned row, ``test_fleet.py``'s
+    fluid migration and disk-tier hibernate/wake."""
+    import shutil
+    from repro_torch.core import AgentRM, AgentRMConfig
+    from repro_torch.distributed.elastic import FleetBackend
+    from repro_torch.faults import ChaosBackend, FaultPlan, FaultSpec
+    from repro_torch.serving import (DiskTierKVSwapStore, PagedEngineBackend,
+                                     PagedInferenceEngine, PoisonedRowError,
+                                     SessionJournal)
+    engines = []
+
+    def mk(**kw):
+        kw = {**dict(num_blocks=40, block_size=8, max_batch=4, max_len=96,
+                     device="cuda"), **kw}
+        eng = PagedInferenceEngine(cfg32, params, **kw)
+        engines.append(eng)
+        return eng
+
+    def released(eng) -> int:
+        for rid in list(eng.reqs):
+            eng.release(rid)
+        return int(eng.cache.allocator.num_used)
+
+    d = SERVE_DIR / "bitexact"
+    shutil.rmtree(d, ignore_errors=True)
+    reset_counts()
+    out = {}
+
+    # a crash mid-decode, restored from the journal
+    t1 = {a: f"first turn for {a}" for a in ("ca", "cb")}
+    t2 = {a: f"second turn for {a}" for a in ("ca", "cb")}
+
+    def crash_run(crash: bool):
+        def factory():
+            return mk(max_batch=2)
+        inner = PagedEngineBackend(
+            factory(), max_new_tokens=6,
+            journal=SessionJournal(str(d / f"journal{int(crash)}")),
+            engine_factory=factory)
+        be = ChaosBackend(inner, FaultPlan()) if crash else inner
+        rm = AgentRM(be, AgentRMConfig(lanes=2, detect_after_s=60.0,
+                                       step_backoff_s=0.01))
+        try:
+            r1 = {a: rm.submit(a, p).result(300) for a, p in t1.items()}
+            if crash:
+                be.plan = FaultPlan([FaultSpec(be.step_idx + 5, "crash")])
+            hs = {a: rm.submit(a, p) for a, p in t2.items()}
+            r2 = {a: h.result(300) for a, h in hs.items()}
+            rebuilds = rm.obs.metrics.counter("rm.engine_rebuilds").value
+            return r1, r2, rebuilds, (be.injected["crash"] if crash else 0)
+        finally:
+            rm.shutdown()
+
+    ref = crash_run(False)
+    got = crash_run(True)
+    if got[:2] != ref[:2] or got[2:] != (1, 1):
+        raise AssertionError(f"crash restore: {got} against {ref}")
+    out["crash_restore"] = {"tokens_equal": True, "rebuilds": 1}
+
+    # a fluid migration mid-decode between two fleet members
+    prompt = {"m": "stream me " * 4}
+    ref, _ = _drive_turns(PagedEngineBackend(mk(), max_new_tokens=20),
+                          prompt)
+    fleet = FleetBackend([PagedEngineBackend(mk(name=f"engine{i}"),
+                                             max_new_tokens=20)
+                          for i in range(2)],
+                         fluid_pages_per_tick=1, fluid_handoff_pages=1)
+    ext = fleet.begin_turn("m", "", prompt["m"])
+    for _ in range(4):
+        fleet.step()
+    if fleet.migrate("m", 1, fluid=True) != {"agent": "m", "mode": "fluid"}:
+        raise AssertionError("fluid migration did not start")
+    rids, got = {ext: "m"}, {}
+    for _ in range(400):
+        if not rids:
+            break
+        rep = fleet.step()
+        if rep.failed:
+            raise AssertionError(f"fluid migration: {rep.failed}")
+        for rid in rep.finished:
+            got[rids.pop(rid)] = fleet.collect(rid)
+    mig = fleet.last_migration
+    leaked = [released(m.backend.engine) for m in fleet.members]
+    if got != ref or mig.phase != "done" or fleet._home["m"] != 1 \
+            or any(leaked):
+        raise AssertionError(f"fluid migration: {got} against {ref}, "
+                             f"phase {mig.phase}, blocks left {leaked}")
+    out["fluid_migration"] = {"tokens_equal": True,
+                              "pages_sent": mig.pages_sent,
+                              "blocks_left": leaked}
+
+    # hibernate through a disk tier that spills everything, then wake
+    agents = {"h1": "hibernate me " * 2, "h2": "me too " * 2}
+    t2 = {a: "wake turn " + a for a in agents}
+    ref_be = PagedEngineBackend(mk(), max_new_tokens=6)
+    _drive_turns(ref_be, agents)
+    ref, _ = _drive_turns(ref_be, t2)
+    store = DiskTierKVSwapStore(str(d / "tier"), capacity_bytes=1)
+    eng = mk(swap_store=store)
+    be = PagedEngineBackend(eng, max_new_tokens=6)
+    _drive_turns(be, agents)
+    for a in agents:
+        be.hibernate_session(a)
+    spilled = store.tier_stats()["swap_disk_sessions"]
+    got, errs = _drive_turns(be, t2)
+    if errs or got != ref or spilled < 1 or released(eng):
+        raise AssertionError(f"disk tier wake: {got} against {ref}, {errs}, "
+                             f"{spilled} spilled")
+    out["disk_tier_wake"] = {"tokens_equal": True,
+                             "sessions_spilled": spilled}
+
+    # a poisoned row fails only its own turn
+    prompts = {"victim": "doomed prompt " * 2,
+               "mate1": "innocent bystander one",
+               "mate2": "innocent bystander two"}
+    ref, _ = _drive_turns(PagedEngineBackend(mk(), max_new_tokens=8),
+                          prompts)
+    eng = mk()
+    be = PagedEngineBackend(eng, max_new_tokens=8)
+    rids = {be.begin_turn(a, "", p): a for a, p in prompts.items()}
+    victim = next(r for r, a in rids.items() if a == "victim")
+    got, errs = {}, {}
+    for step in range(200):
+        if step == 2:
+            eng.inject_poison(victim)
+        if not rids:
+            break
+        rep = be.step()
+        for rid, err in rep.failed:
+            errs[rids.pop(rid)] = err
+        for rid in rep.finished:
+            got[rids.pop(rid)] = be.collect(rid)
+    if set(errs) != {"victim"} or not isinstance(errs["victim"],
+                                                 PoisonedRowError) \
+            or got != {a: ref[a] for a in ("mate1", "mate2")} \
+            or released(eng):
+        raise AssertionError(f"poisoned row: {errs}, {got} against {ref}")
+    out["poisoned_row"] = {"victim_error": type(errs["victim"]).__name__,
+                           "batchmates_equal": True}
+
+    torch.cuda.synchronize()
+    counts = read_counts()
+    dispatches = sum(e.jit_dispatches for e in engines)
+    _expect("serve bitexact", counts, {"K1": cfg32.n_layers * dispatches})
+    out["launches"] = counts
+    out["engines"] = len(engines)
+    return out
+
+
+def serve_phase(torch, seed: int) -> dict:
+    """The serving CLI at full gemma-2b, as users start it, then the
+    library's recovery paths bit for bit at float32."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    cfg = get_config("gemma-2b")
+    runs = _serve_checks(torch, cfg)
+    sub = _serve_subprocess(cfg)
+    cfg32 = cfg.replace(compute_dtype="float32")
+    params = init_params(cfg32, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    bitexact = _bitexact_checks(torch, cfg32, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                + bitexact["launches"][k] for k in bitexact["launches"]}
+    return {"runs": runs, "subprocess": sub, "bitexact": bitexact,
+            "launches": launches}
+
+
 # ------------------------------------------------------------ lockstep
 
 def lockstep_phase(torch, seed: int, b: int = 2, s: int = 64):
@@ -1431,7 +1844,10 @@ def main() -> int:
     dense = dense_phase(torch, cfg, params, prompts)
     emit({"phase": "dense", "card": smi, **dense})
     del params
+    gc.collect()
     torch.cuda.empty_cache()
+    serve = serve_phase(torch, args.seed)
+    emit({"phase": "serve", "card": smi, **serve})
     lockstep = lockstep_phase(torch, args.seed)
     emit({"phase": "lockstep", "card": smi, **lockstep})
     # the engines of the serving phases hold the gemma-2b params in
@@ -1446,8 +1862,8 @@ def main() -> int:
     emit({"phase": "hybrid", "card": smi, **hybrid})
 
     launches = {name: sum(p["launches"][name]
-                          for p in (main, legacy, dense, lockstep, ssm,
-                                    hybrid))
+                          for p in (main, legacy, dense, serve, lockstep,
+                                    ssm, hybrid))
                 for name in cases}
     src = "src/repro_torch/kernels/"
     ref = "src/repro/kernels/"

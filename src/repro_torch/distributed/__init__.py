@@ -1,0 +1,4 @@
+"""Distribution utilities of the port: the elastic engine fleet
+(``elastic.py``, a copy of the reference's) and the serving mesh's config
+check (``sharding.py``). The reference's ``constrain.py`` belongs with
+tensor parallelism, which the port does not have yet."""

@@ -46,8 +46,9 @@ from repro_torch.serving.paging.allocator import (NULL_BLOCK,
                                                   PageTable)
 from repro_torch.serving.paging.pool import PagedKVCache
 from repro_torch.serving.paging.swap import SwapManager
-from repro_torch.serving.errors import (KVPressureError, PoisonedRowError,
-                                        SwapIOError)
+# EngineError is re-exported here, as the reference's engine does
+from repro_torch.serving.errors import (EngineError, KVPressureError,
+                                        PoisonedRowError, SwapIOError)
 
 QUEUED, ACTIVE, PARKED, SWAPPED, FREED = \
     "queued", "active", "parked", "swapped", "freed"

@@ -28,7 +28,11 @@ obs/trace.py core/__init__.py core/monitor.py core/middleware.py
 core/scheduler/task.py core/scheduler/drf.py core/scheduler/policies.py
 core/scheduler/ratelimit.py core/context/message.py core/context/tiers.py
 core/context/psi.py core/context/summarizer.py core/context/baselines.py
-core/context/manager.py""".split()
+core/context/manager.py core/scheduler/scenarios.py core/scheduler/simulator.py
+core/scheduler/__init__.py core/context/sessions.py core/context/evaluate.py
+core/context/__init__.py serving/journal.py serving/paging/disktier.py
+serving/paging/__init__.py serving/__init__.py faults/__init__.py
+faults/plan.py faults/inject.py distributed/elastic.py""".split()
 
 
 def _port_sources():
@@ -81,6 +85,7 @@ def test_engine_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present, so the default device is usable")
     from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
     from repro_torch.models.transformer import init_decode_state, init_params
     from repro_torch.serving import InferenceEngine, PagedInferenceEngine
     from repro_torch.serving.paging.pool import PagedKVCache
@@ -99,6 +104,10 @@ def test_engine_defaults_to_the_card():
         init_params(cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         PagedKVCache(cfg, num_blocks=4, block_size=8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "gemma-2b", "--smoke", "--paged"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "gemma-2b", "--smoke"])
     with pytest.raises(RuntimeError, match="cuda"):
         params_from_jax({"embed": np.zeros((cfg.vocab_size, cfg.d_model),
                                            np.float32)}, cfg)
