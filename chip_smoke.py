@@ -16,7 +16,9 @@ Phases, each printing one JSON line (several for the kernel cases):
               K1 paged chunked prefill: b=8, blk=16, C in {1, 8, 64, 256},
                  ragged valids, plus one hkv=2 case and the paths' prefill
                  shapes (b=8, C=32: the megastep's bucket; b=1, C=32: the
-                 legacy chunk); bit for bit against its gathered-view twin
+                 legacy chunk), and at C in {1, 32} llama4-scout's heads
+                 (hq=40, hkv=8, d=128) and starcoder2-7b's (hq=36,
+                 hkv=4); bit for bit against its gathered-view twin
                  and on a second call; each row gives the kernel's route
                  (split decode at C=1, tensor cores at bf16 C>1, the walk
                  at f32 C>1) and its key ranges, and is held to the walk
@@ -27,13 +29,17 @@ Phases, each printing one JSON line (several for the kernel cases):
                  plus one hkv=2 case; the split plan, the split walk at a
                  tighter tolerance, equal bits on a second call;
               K3 flash attention: b=1, sq in {33, 96, 256}, plus one hkv=2
-                 case, one dv != d case and the hybrid's heads at sq=512;
+                 case, one dv != d case, the hybrid's heads at sq=512,
+                 whisper-tiny's encoder (sq=skv=1500, d=64, not causal)
+                 and cross-attention (sq=1, skv=1500), and llava-next's
+                 prefix (sq=640, hq=32, hkv=8, d=128);
                  each row gives the grid, and each case is also held to
                  the tiled walk it runs (P rounded to bf16) at a tighter
                  tolerance;
               K4 decode over a contiguous cache: b=4 slots, S=1024, per-row
-                 lengths from 1 up, plus one scalar-length case and the
-                 hybrid's ring (b=1, S=1024) at its heads; each row gives
+                 lengths from 1 up, plus one scalar-length case, the
+                 hybrid's ring (b=1, S=1024) at its heads and whisper-tiny's
+                 decoder (b=2, S=448, hq=hkv=6, d=64); each row gives
                  the split plan, is held to the split-K walk it runs at a
                  tighter tolerance, and checks two calls give the same
                  bits;
@@ -98,12 +104,37 @@ Phases, each printing one JSON line (several for the kernel cases):
               a profiled forward and decode step; then f32 at a depth cut
               to 13 layers: ``forward`` over 64
               tokens against ``decode_step`` token by token, within 2e-3.
+11. moe     — llama4-scout-17b-a16e (MoE: 16 experts of 8192 top-1 and a
+              shared one) at full width in bf16, depth cut to 8 of 48
+              layers (memory): ``main`` as it runs gemma-2b, the same
+              agents and prompts through AgentRM -> the megastep (K1),
+              every column of each step routed; then f32 at depth 2,
+              capacity factor 8, one row: ``forward`` against
+              ``decode_step`` token by token, within 2e-3.
+12. mla     — deepseek-v2-lite-16b (MLA, 64 experts top-6, a dense first
+              layer) at full width and depth in bf16: ``forward`` over
+              2 x 512 (K3 at d 192, dv 128), ``prefill`` + 32 greedy
+              ``decode_step``s (the absorbed decode: plain products) and
+              a replay, a profiled forward and decode step; then f32 at
+              depth 4, capacity factor 8: forward against decode.
+13. vlm     — llava-next-mistral-7b at full width and depth in bf16:
+              ``forward`` with 576 patch embeddings ahead of 64 tokens
+              (K3), ``prefill`` with the prefix + 16 ``decode_step``s
+              (K4); then the serving CLI ``--paged``, text only (K1).
+14. starcoder2 — starcoder2-7b at full width and depth (hq 36 over 4 kv
+              heads) through the serving CLI ``--paged`` at its defaults.
+15. encdec  — whisper-tiny at full size in bf16: ``forward`` (K3 not
+              causal over 1500 encoder positions and across, causal over
+              the text), ``init_cross_cache`` + 32 greedy ``decode_step``s
+              (K4 self, K3 across at sq 1), a profiled decode step; then
+              f32 forward against decode, within 2e-3.
 
 Every kernel's launch count is set to 0 just before a path is driven and
 read just after; launches made to compare a kernel with its plain version
-are not counted. Then the ``{"kernels": [...]}`` line, the card's
-nvidia-smi line, and as the last line ``{"ok": true, "device": {...}}``.
-Any failure raises and exits non-zero before that line is printed.
+are not counted. Each phase's line carries its own seconds. Then the
+``{"kernels": [...]}`` line, the card's nvidia-smi line, and as the last
+line ``{"ok": true, "device": {...}}``. Any failure raises and exits
+non-zero before that line is printed.
 """
 from __future__ import annotations
 
@@ -123,6 +154,10 @@ PEAK_FLOPS = {"bfloat16": 989e12,       # dense tensor-core bf16
               "float32": 67e12}         # float32 outside the tensor cores
 TOL = {"bfloat16": 1e-2, "float32": 1e-5}   # atol and rtol, see _check
 LOCKSTEP_TOL = 2e-3                     # test_decode_matches_full_forward's
+# prefill's last logits against forward's last position, bf16: the same
+# layers on the same inputs; only the f32 unembed runs over another row
+# count, so another cuBLAS kernel may sum in another order
+PREFILL_TOL = 1e-3
 # (atol, rtol) of K1-K4 against the plain walks they run (the tiled walks
 # with P rounded to bf16 on the tensor cores; the split-K decodes from the
 # kernel's plan), in float32 out: a bf16 output is at most half a bf16 ulp
@@ -151,6 +186,9 @@ KERNEL_NAMES = {"K1": ("paged_walk_kernel", "paged_tc_kernel",
 # the workload of the serving paths: agents, new tokens per turn (base +
 # a per-agent jitter), and the prompt cap in tokens
 N_AGENTS, NEW_TOKENS, JITTER, PROMPT_CAP = 6, 16, 8, 384
+# the megastep engine of the main path
+MEGASTEP_ENGINE = dict(num_blocks=8 * 64 + 1, block_size=16, max_batch=8,
+                       max_len=1024, token_budget=256, device="cuda")
 
 
 def emit(obj):
@@ -338,20 +376,29 @@ def _repeat_check(torch, name: str, fn):
 def k1_cases(torch, flush):
     """K1 at the megastep's buckets (b = 8 rows, C in {1, 8, 32, 64, 256}),
     the legacy loop's prefill chunk (b = 1, C = 32, a history ending
-    mid-page) and one hkv = 2 case. Each row gives the kernel's plan; each
+    mid-page) and one hkv = 2 case, at gemma-2b's heads; and at C in
+    {1, 32} at llama4-scout's heads (hq 40, hkv 8) and starcoder2-7b's
+    (hq 36, hkv 4), d = 128. Each row gives the kernel's plan; each
     case is held to the walk it runs, to its twin bit for bit and to a
     second call; at C = 1, K2 at lens = cache_lens + 1 to K1 bit for bit on
     the rows with valids = 1."""
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import ops, ref
     rows = []
-    cases = [(dt, C, 1, 8, None) for dt in (torch.bfloat16, torch.float32)
-             for C in (1, 8, 64, 256)] + [(torch.bfloat16, 64, 2, 8, None)]
-    cases += [(torch.bfloat16, 32, 1, 8, None),
-              (torch.bfloat16, 32, 1, 1, ([300], [32]))]
-    for n, (dtype, C, hkv, b, fixed) in enumerate(cases):
-        args = _paged_case(torch, dtype, C, hkv, seed=1000 + n, b=b,
-                           rows=fixed)
+    gemma = (8, 256)                     # hq, d
+    cases = [(dt, C, 1, 8, None, gemma)
+             for dt in (torch.bfloat16, torch.float32)
+             for C in (1, 8, 64, 256)] + [(torch.bfloat16, 64, 2, 8, None,
+                                           gemma)]
+    cases += [(torch.bfloat16, 32, 1, 8, None, gemma),
+              (torch.bfloat16, 32, 1, 1, ([300], [32]), gemma)]
+    # llama4-scout's heads (g = 5) and starcoder2-7b's (g = 9), d = 128,
+    # at the megastep's decode step and prefill bucket
+    cases += [(torch.bfloat16, C, hkv, 8, None, (hq, 128))
+              for hq, hkv in ((40, 8), (36, 4)) for C in (1, 32)]
+    for n, (dtype, C, hkv, b, fixed, (hq, d)) in enumerate(cases):
+        args = _paged_case(torch, dtype, C, hkv, seed=1000 + n, b=b, hq=hq,
+                           d=d, rows=fixed)
         q, k, v, lens, vals, pt = args
         dname = _dname(dtype)
         plan = ops.kernel_plan(q, k, v, pt)
@@ -366,7 +413,8 @@ def k1_cases(torch, flush):
         if not torch.equal(out, twin):
             raise AssertionError(f"{name}: paged kernel != its "
                                  "gathered-view twin bit for bit")
-        case = {"b": b, "C": C, "hkv": hkv, "pairing": "g_major", **plan,
+        case = {"b": b, "C": C, "hq": hq, "hkv": hkv, "d": d,
+                "pairing": "g_major", **plan,
                 "bitwise_twin": True, "bitwise_repeat": True}
         if C == 1:
             k2 = ops.paged_attention(q, k, v, lens + 1, pt,
@@ -450,66 +498,91 @@ def k3_cases(torch, flush):
     tokens, a ragged 33) and beyond, at gemma-2b heads; one hkv=2 case
     (chatglm3-6b's grouping at its head_dim), one dv != d case (the MLA
     shapes: qk 192, v 128), and the hybrid's shared block in ``forward``
-    (zamba2-7b: hq = hkv = 32, d = 112, sq = 512)."""
+    (zamba2-7b: hq = hkv = 32, d = 112, sq = 512); then, not causal,
+    whisper-tiny's encoder (hq = hkv = 6, d = 64, sq = skv = 1500) and its
+    cross-attention in ``forward`` (2 rows of sq = 64 text tokens against
+    the 1500 encoder positions) and at a decode step (sq = 1), and causal,
+    llava-next's image prefix and text in ``forward`` (sq = 576 + 64, hq
+    32, hkv 8, d 128) and deepseek-v2-lite's MLA ``forward`` (2 rows of
+    512, 16 heads, d 192, dv 128)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
     rows = []
-    cases = [(dt, sq, 8, 1, 256, 256) for dt in (torch.bfloat16, torch.float32)
-             for sq in (33, 96, 256)]
-    cases += [(torch.bfloat16, 96, 8, 2, 128, 128),
-              (torch.bfloat16, 96, 16, 16, 192, 128)]
-    cases += [(dt, 512, 32, 32, 112, 112)
+    cases = [(dt, 1, sq, 8, 1, 256, 256) for dt in
+             (torch.bfloat16, torch.float32) for sq in (33, 96, 256)]
+    cases += [(torch.bfloat16, 1, 96, 8, 2, 128, 128),
+              (torch.bfloat16, 1, 96, 16, 16, 192, 128),
+              (torch.bfloat16, 2, 512, 16, 16, 192, 128)]
+    cases += [(dt, 1, 512, 32, 32, 112, 112)
               for dt in (torch.bfloat16, torch.float32)]
-    for n, (dtype, sq, hq, hkv, d, dv) in enumerate(cases):
+    cases = [c + (c[2], True) for c in cases]      # skv = sq, causal
+    cases += [(torch.bfloat16, 1, 1500, 6, 6, 64, 64, 1500, False),
+              (torch.bfloat16, 2, 64, 6, 6, 64, 64, 1500, False),
+              (torch.bfloat16, 1, 1, 6, 6, 64, 64, 1500, False),
+              (torch.bfloat16, 1, 640, 32, 8, 128, 128, 640, True)]
+    for n, (dtype, b, sq, hq, hkv, d, dv, skv, causal) in enumerate(cases):
         g = torch.Generator(device="cuda").manual_seed(3000 + n)
-        q = torch.randn((1, sq, hq, d), generator=g, device="cuda").to(dtype)
-        k = torch.randn((1, sq, hkv, d), generator=g, device="cuda").to(dtype)
-        v = torch.randn((1, sq, hkv, dv), generator=g,
+        q = torch.randn((b, sq, hq, d), generator=g, device="cuda").to(dtype)
+        k = torch.randn((b, skv, hkv, d), generator=g,
+                        device="cuda").to(dtype)
+        v = torch.randn((b, skv, hkv, dv), generator=g,
                         device="cuda").to(dtype)
         dname = _dname(dtype)
         ks, vs = _tile_heads(k, hq // hkv), _tile_heads(v, hq // hkv)
         es = q.element_size()
-        nbytes = (q.numel() + k.numel() + v.numel() + sq * hq * dv) * es
-        flops = sq * (sq + 1) // 2 * hq * 2 * (d + dv)
+        nbytes = (q.numel() + k.numel() + v.numel() + b * sq * hq * dv) * es
+        pairs = sq * (sq + 1) // 2 if causal else sq * skv
+        flops = b * pairs * hq * 2 * (d + dv)
         row = measure(
-            torch, flush, "K3", {"b": 1, "sq": sq, "hq": hq, "hkv": hkv,
-                                 "d": d, "dv": dv, "pairing": "g_major",
-                                 **ops.launch_grid(1, sq, hq, hkv, d, dv,
+            torch, flush, "K3", {"b": b, "sq": sq, "skv": skv, "hq": hq,
+                                 "hkv": hkv, "d": d, "dv": dv,
+                                 "causal": causal, "pairing": "g_major",
+                                 **ops.launch_grid(b, sq, hq, hkv, d, dv,
                                                    dtype)},
             dname,
-            lambda: ops.flash_attention(q, k, v, pairing="g_major"),
-            lambda: ref.attention_ref(q, k, v, pairing="g_major"),
+            lambda: ops.flash_attention(q, k, v, causal=causal,
+                                        pairing="g_major"),
+            lambda: ref.attention_ref(q, k, v, causal=causal,
+                                      pairing="g_major"),
             lambda: F.scaled_dot_product_attention(q.transpose(1, 2), ks, vs,
-                                                   is_causal=True),
+                                                   is_causal=causal),
             lambda o: o.transpose(1, 2), _bound(nbytes, flops, dname))
         walk = ref.attention_tiled_ref(
-            q.float(), k.float(), v.float(), pairing="g_major",
+            q.float(), k.float(), v.float(), causal=causal,
+            pairing="g_major",
             p_dtype=dtype if dtype == torch.bfloat16 else None)
         rows.append(_walk_check(torch, "K3", row, ops.flash_attention(
-            q, k, v, pairing="g_major"), walk))
+            q, k, v, causal=causal, pairing="g_major"), walk))
     return rows
 
 
 def k4_cases(torch, flush):
     """K4 at the dense engine's decode shape: 4 slots of a 1024-token
     cache, per-row lengths from 1 up; one scalar length (the lockstep
-    decode); and the hybrid's ring decode (zamba2-7b: hq = hkv = 32,
-    d = 112, one row, a scalar length)."""
+    decode); the hybrid's ring decode (zamba2-7b: hq = hkv = 32,
+    d = 112, one row, a scalar length); whisper-tiny's decoder
+    self-attention (hq = hkv = 6, d = 64, 2 rows of its 448 positions, a
+    scalar length); and llava-next's decode after its image prefix (hq 32,
+    hkv 8, d 128, 2 rows of a 656-position cache: 576 + 64 + 16, a scalar
+    length)."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops, ref
     rows = []
     gemma, ring = (4, 1024, 8, 1, 256), (1, 1024, 32, 32, 112)
+    whisper, llava = (2, 448, 6, 6, 64), (2, 656, 32, 8, 128)
     cases = [(torch.bfloat16, False, gemma), (torch.float32, False, gemma),
              (torch.bfloat16, True, gemma), (torch.bfloat16, True, ring),
-             (torch.float32, True, ring)]
+             (torch.float32, True, ring), (torch.bfloat16, True, whisper),
+             (torch.bfloat16, True, llava)]
     for n, (dtype, scalar, (b, S, hq, hkv, d)) in enumerate(cases):
         g = torch.Generator(device="cuda").manual_seed(4000 + n)
         q = torch.randn((b, 1, hq, d), generator=g, device="cuda").to(dtype)
         k = torch.randn((b, S, hkv, d), generator=g, device="cuda").to(dtype)
         v = torch.randn((b, S, hkv, d), generator=g, device="cuda").to(dtype)
-        lens = [700] * b if scalar else [1, 97, 513, 1000]
-        kv_len = 700 if scalar else torch.tensor(lens, dtype=torch.int32,
-                                                 device="cuda")
+        length = min(700, S - 1)
+        lens = [length] * b if scalar else [1, 97, 513, 1000]
+        kv_len = length if scalar else torch.tensor(lens, dtype=torch.int32,
+                                                    device="cuda")
         dname = _dname(dtype)
         kpos = torch.arange(S, device="cuda")
         lt = torch.tensor(lens, device="cuda")
@@ -662,6 +735,14 @@ def _prompt(rng, agent: int, turn: int, n_chars: int) -> str:
     return f"agent {agent} turn {turn}: " + " ".join(words)[:n_chars]
 
 
+def make_prompts(seed: int) -> list:
+    """Two turns' prompts for each of the N_AGENTS agents, from ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [[_prompt(rng, a, t, int(rng.integers(200, 360)))
+             for t in range(2)] for a in range(N_AGENTS)]
+
+
 def _n_new(agent: int) -> int:
     from repro_torch.serving.backend import _jittered_new_tokens
     return _jittered_new_tokens(NEW_TOKENS, JITTER, f"agent{agent}")
@@ -721,8 +802,7 @@ def main_phase(torch, cfg, params, prompts, seed: int):
     from repro_torch.core import AgentRM, AgentRMConfig
     from repro_torch.serving import PagedEngineBackend, PagedInferenceEngine
 
-    ekw = dict(num_blocks=8 * 64 + 1, block_size=16, max_batch=8,
-               max_len=1024, token_budget=256, device="cuda")
+    ekw = MEGASTEP_ENGINE
     engine = PagedInferenceEngine(cfg, params, **ekw)
     t0 = time.perf_counter()
     engine.compile_buckets()
@@ -789,24 +869,9 @@ def profile_steps(torch, cfg, params, ekw, seed: int, n_bare: int = 6,
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serving import PagedInferenceEngine
 
     def windows():
-        """A fresh engine, yielded once at the start of each window."""
-        eng = PagedInferenceEngine(cfg, params, **ekw)
-        eng.compile_buckets()
-        rng = np.random.default_rng(seed)
-        for _ in range(eng.max_batch):
-            eng.submit(rng.integers(1, cfg.vocab_size, 400),
-                       max_new_tokens=64)
-        for phase in ("prefill", "decode"):
-            if phase == "decode":
-                while any(r.prefilling for r in eng.active.values()):
-                    eng.step()
-            eng.step()
-            eng.sync()
-            eng.trace_buckets.clear()
-            yield phase, eng
+        return step_windows(cfg, params, ekw, seed)
 
     out = {}
     for phase, eng in windows():
@@ -850,6 +915,27 @@ def profile_steps(torch, cfg, params, ekw, seed: int, n_bare: int = 6,
             "host_op_ms_per_step": sum(host.values()),
             "top_host_op_ms_per_step": _top(host)})
     return out
+
+
+def step_windows(cfg, params, ekw, seed: int):
+    """A fresh megastep engine with a full batch (8 prompts of 400 tokens),
+    yielded once at the start of each window: while the prompts prefill
+    (C = 32), then while all rows decode (C = 1)."""
+    import numpy as np
+    from repro_torch.serving import PagedInferenceEngine
+    eng = PagedInferenceEngine(cfg, params, **ekw)
+    eng.compile_buckets()
+    rng = np.random.default_rng(seed)
+    for _ in range(eng.max_batch):
+        eng.submit(rng.integers(1, cfg.vocab_size, 400), max_new_tokens=64)
+    for phase in ("prefill", "decode"):
+        if phase == "decode":
+            while any(r.prefilling for r in eng.active.values()):
+                eng.step()
+        eng.step()
+        eng.sync()
+        eng.trace_buckets.clear()
+        yield phase, eng
 
 
 def _top(times: dict, n: int = 6) -> list:
@@ -1503,7 +1589,8 @@ def _lockstep_err(name, got, want) -> float:
 
 def _greedy(model, params, toks, steps: int):
     """prefill of ``toks`` (b, s) then ``steps`` greedy decode_steps;
-    returns (ids (b, 1 + steps) on the host, prefill ms, decode step ms)."""
+    returns (ids (b, 1 + steps) on the host, prefill ms, decode step ms,
+    prefill's last logits (b, V))."""
     import numpy as np
     import torch
     b, s = toks.shape
@@ -1523,7 +1610,18 @@ def _greedy(model, params, toks, steps: int):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     if not all(torch.isfinite(x).all() for x in (last, logits)):
         raise AssertionError("greedy decode: non-finite logits")
-    return np.concatenate([x.numpy() for x in ids], 1), prefill_ms, step_ms
+    return (np.concatenate([x.numpy() for x in ids], 1), prefill_ms,
+            step_ms, last[:, -1])
+
+
+def _prefill_vs_forward(path: str, last, fwd_last) -> float:
+    """prefill's last logits against forward's last position, within
+    PREFILL_TOL."""
+    err = (last - fwd_last).abs().max().item()
+    if not err <= PREFILL_TOL:
+        raise AssertionError(f"{path}: prefill's last logits {err} from "
+                             f"forward's, beyond {PREFILL_TOL}")
+    return err
 
 
 def ssm_phase(torch, seed: int, b: int = 4, s: int = 512, steps: int = 32):
@@ -1548,11 +1646,11 @@ def ssm_phase(torch, seed: int, b: int = 4, s: int = 512, steps: int = 32):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    ids, prefill_ms, step_ms = _greedy(model, params, toks, steps)
+    ids, prefill_ms, step_ms, _ = _greedy(model, params, toks, steps)
     wall = time.perf_counter() - t0
     counts = read_counts()
     _expect("ssm", counts, {"K5": cfg.n_layers})
-    ids2, prefill2_ms, step2_ms = _greedy(model, params, toks, steps)
+    ids2, prefill2_ms, step2_ms, _ = _greedy(model, params, toks, steps)
     if not np.array_equal(ids, ids2):
         raise AssertionError("ssm: a replay of prefill + greedy decode "
                              "gave other tokens")
@@ -1718,6 +1816,336 @@ def hybrid_phase(torch, seed: int, s: int = 512, steps: int = 32,
                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}}
 
 
+# ------------------------------------------------------------ families
+
+def _decode_vs_forward(torch, path: str, model, params, toks, **inputs):
+    """f32 ``forward`` over toks (b, s) against ``decode_step`` fed token
+    by token from position 0, every position within 2e-3; returns the max
+    abs error and the largest logit."""
+    b, s = toks.shape
+    ref = model.forward(params, toks, **inputs)
+    state = model.init_decode_state(b, s, device="cuda")
+    if "frame_embeds" in inputs:
+        from repro_torch.models import encdec
+        state["cross_k"], state["cross_v"] = encdec.init_cross_cache(
+            params, inputs["frame_embeds"], model.cfg)
+    err = 0.0
+    for t in range(s):
+        out = model.decode_step(params, state, toks[:, t:t + 1], t)
+        err = max(err, _lockstep_err(f"{path} position {t}", out[:, 0],
+                                     ref[:, t]))
+    return err, ref.abs().max().item()
+
+
+def _f32_cut(cfg, n_layers=None, **moe_kw):
+    import dataclasses
+    cfg = cfg.replace(compute_dtype="float32",
+                      n_layers=n_layers or cfg.n_layers)
+    if moe_kw:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **moe_kw))
+    return cfg
+
+
+def _free():
+    """Collect the engines' reference cycles and hand the card's freed
+    memory back, so each phase's peak is its own."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_phase(torch, prompts, seed: int, n_layers: int = 8):
+    """llama4-scout-17b-a16e at full width (d_model 5120, 40 heads of 128
+    over 8 kv heads, 16 experts of 8192 and a shared one, top-1, vocab
+    202048), random weights from ``seed``, bf16, its depth cut to
+    ``n_layers`` of 48 (about 4.4 GB of bf16 a layer: 48 do not fit one
+    card): ``main_phase`` as it runs gemma-2b, the same agents and prompts
+    through AgentRM -> PagedEngineBackend -> the megastep, every layer
+    routing every column of the step. Then f32 at depth 2, capacity
+    factor 8 (the reference's test_decode_matches_full_forward), one row
+    (a decode token alone is dropless at any factor, two are not at 16
+    experts): ``forward`` over 32 tokens against ``decode_step`` token by
+    token."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    cfg = get_config("llama4-scout-17b-a16e").replace(n_layers=n_layers)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = build(cfg).init_params(generator=g, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    _, main = main_phase(torch, cfg, params, prompts, seed)
+    del params
+    _free()
+    cfg32 = _f32_cut(cfg, 2, capacity_factor=8.0)
+    model = build(cfg32)
+    params = model.init_params(generator=g, device="cuda")
+    s = 32
+    toks = torch.randint(0, cfg.vocab_size, (1, s), generator=g,
+                         device="cuda", dtype=torch.int32)
+    reset_counts()
+    err, logit_max = _decode_vs_forward(torch, "moe f32", model, params, toks)
+    torch.cuda.synchronize()
+    counts32 = read_counts()
+    _expect("moe f32", counts32, {"K3": cfg32.n_layers,
+                                  "K4": cfg32.n_layers * s})
+    del params
+    _free()
+    return {"arch": cfg.name, "n_layers": n_layers,
+            "reduced": f"n_layers 48 -> {n_layers} (memory)",
+            "init_s": t_init, **main,
+            "launches": {k: main["launches"][k] + counts32[k]
+                         for k in counts32},
+            "launches_megastep": main["launches"],
+            "f32": {"reduced": "n_layers 48 -> 2", "capacity_factor": 8.0,
+                    "b": 1, "s": s, "tol": LOCKSTEP_TOL,
+                    "max_abs_err_decode_vs_forward_all_positions": err,
+                    "logit_abs_max": logit_max, "launches": counts32}}
+
+
+def mla_phase(torch, seed: int, b: int = 2, s: int = 512, steps: int = 32):
+    """deepseek-v2-lite-16b at full width and depth (27 layers: a dense
+    first layer of 10944, then 64 routed experts of 1408 top-6 and 2 shared;
+    MLA with a 512-wide latent, 16 heads of 128 + 64 rope), random weights
+    from ``seed``, bf16: ``forward`` over b x s (K3 at d 192, dv 128 in
+    every layer), ``prefill`` + ``steps`` greedy ``decode_step``s (the
+    absorbed decode over the latent cache: plain products, as the
+    reference's are XLA), prefill's last logits held to forward's, and a
+    replay with the same tokens; a profiled forward and decode step. Then
+    f32 at depth 4 (the dense layer and 3 MoE layers), capacity factor 8:
+    ``forward`` over 2 x 64 against ``decode_step`` token by token."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    model = build(cfg)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = model.init_params(generator=g, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                         device="cuda", dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = model.forward(params, toks)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    if logits.shape != (b, s, cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"mla forward: shape {tuple(logits.shape)} or "
+                             "non-finite logits")
+    fwd_last = logits[:, -1]
+    del logits
+    ids, prefill_ms, step_ms, last = _greedy(model, params, toks, steps)
+    counts = read_counts()
+    _expect("mla", counts, {"K3": 2 * cfg.n_layers})
+    prefill_vs_forward = _prefill_vs_forward("mla", last, fwd_last)
+    ids2, _, _, _ = _greedy(model, params, toks, steps)
+    if not np.array_equal(ids, ids2):
+        raise AssertionError("mla: a replay of prefill + greedy decode gave "
+                             "other tokens")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    state = model.init_decode_state(b, s + 1, device="cuda")
+    profile = {"forward": _profile_calls(
+        torch, lambda: model.forward(params, toks), n=1),
+        "decode_step": _profile_calls(
+            torch, lambda: model.decode_step(params, state, toks[:, :1], s),
+            n=4)}
+    del params, state
+    _free()
+    cfg32 = _f32_cut(cfg, 4, capacity_factor=8.0)
+    model32 = build(cfg32)
+    params = model32.init_params(generator=g, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
+                         device="cuda", dtype=torch.int32)
+    reset_counts()
+    err, logit_max = _decode_vs_forward(torch, "mla f32", model32, params,
+                                        toks)
+    torch.cuda.synchronize()
+    counts32 = read_counts()
+    _expect("mla f32", counts32, {"K3": cfg32.n_layers})
+    del params
+    _free()
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "b": b, "s": s,
+            "dtype": "bfloat16", "init_s": t_init, "forward_ms": fwd_ms,
+            "prefill_ms": prefill_ms, "decode_steps": steps,
+            "decode_step_median_ms": float(np.median(step_ms)),
+            "greedy_ids_row0": ids[0].tolist(), "replay_deterministic": True,
+            "prefill_vs_forward_last_max_abs_diff": prefill_vs_forward,
+            "prefill_tol": PREFILL_TOL,
+            "launches": {k: counts[k] + counts32[k] for k in counts},
+            "launches_bf16": counts, "peak_mem_gb_bf16": peak,
+            "profile": profile,
+            "f32": {"reduced": "n_layers 27 -> 4 (the dense layer and 3 MoE "
+                               "layers)", "capacity_factor": 8.0, "b": 2,
+                    "s": 64, "tol": LOCKSTEP_TOL,
+                    "max_abs_err_decode_vs_forward_all_positions": err,
+                    "logit_abs_max": logit_max}}
+
+
+def vlm_phase(torch, seed: int, b: int = 2, text: int = 64, steps: int = 16):
+    """llava-next-mistral-7b at full width and depth (32 layers, d_model
+    4096, 32 heads of 128 over 8 kv heads), random weights from ``seed``,
+    bf16: ``forward`` with 576 patch embeddings ahead of ``text`` tokens
+    (K3 at sq 640), ``prefill`` with the prefix, its last logits held to
+    forward's, and ``steps`` greedy ``decode_step``s (K4); then the
+    serving CLI ``--paged``, text only as the reference's paged members are
+    (K1)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+
+    cfg = get_config("llava-next-mistral-7b")
+    model = build(cfg)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = model.init_params(generator=g, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    toks = torch.randint(0, cfg.vocab_size, (b, text), generator=g,
+                         device="cuda", dtype=torch.int32)
+    patch = torch.randn((b, cfg.n_image_tokens, cfg.d_model), generator=g,
+                        device="cuda").to(torch.bfloat16)
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = model.forward(params, toks, patch_embeds=patch)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    if logits.shape != (b, text, cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"vlm forward: shape {tuple(logits.shape)} or "
+                             "non-finite logits")
+    n = cfg.n_image_tokens + text
+    state = model.init_decode_state(b, n + steps, device="cuda")
+    t0 = time.perf_counter()
+    last = model.prefill(params, toks, state=state, patch_embeds=patch)
+    tok = last[:, -1].argmax(-1).to(torch.int32)[:, None]
+    ids = [tok.cpu()]
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    step_ms = []
+    for t in range(steps):
+        t0 = time.perf_counter()
+        out = model.decode_step(params, state, tok, n + t)
+        tok = out[:, -1].argmax(-1).to(torch.int32)[:, None]
+        ids.append(tok.cpu())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if not (torch.isfinite(last).all() and torch.isfinite(out).all()):
+        raise AssertionError("vlm prefill / decode: non-finite logits")
+    counts = read_counts()
+    _expect("vlm", counts, {"K3": 2 * cfg.n_layers,
+                            "K4": cfg.n_layers * steps})
+    prefill_vs_forward = _prefill_vs_forward("vlm", last[:, 0],
+                                             logits[:, -1])
+    del params, state, logits
+    _free()
+    cli = _cli_run(torch, cfg, "vlm_paged", ["--paged"])
+    _free()
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "b": b,
+            "image_tokens": cfg.n_image_tokens, "text_tokens": text,
+            "dtype": "bfloat16", "init_s": t_init, "forward_ms": fwd_ms,
+            "prefill_ms": prefill_ms, "decode_steps": steps,
+            "decode_step_median_ms": float(np.median(step_ms)),
+            "greedy_ids_row0": np.concatenate(
+                [x.numpy() for x in ids], 1)[0].tolist(),
+            "prefill_vs_forward_last_max_abs_diff": prefill_vs_forward,
+            "prefill_tol": PREFILL_TOL,
+            "launches": {k: counts[k] + cli["launches"][k] for k in counts},
+            "launches_model": counts, "cli": cli}
+
+
+def starcoder2_phase(torch) -> dict:
+    """starcoder2-7b at full width and depth (32 layers, d_model 4608, 36
+    heads of 128 over 4 kv heads, a plain GELU MLP of 18432), through the
+    serving CLI ``--paged`` at its defaults (K1 at g = 9)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("starcoder2-7b")
+    cli = _cli_run(torch, cfg, "starcoder2_paged", ["--paged"])
+    _free()
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, **cli}
+
+
+def encdec_phase(torch, seed: int, b: int = 2, s: int = 64,
+                 steps: int = 32):
+    """whisper-tiny at full size (4 encoder and 4 decoder layers, d_model
+    384, 6 heads of 64, 1500 encoder positions), random weights and frame
+    embeddings from ``seed``, bf16: ``forward`` over b x s text tokens
+    (K3 not causal in the encoder at sq 1500, causal over the text,
+    not causal across at sq = s), then ``init_cross_cache`` and ``steps``
+    greedy ``decode_step``s from one token (K4 for self-attention, K3 not
+    causal at sq 1 across); a profiled decode step. Then f32: ``forward``
+    against ``decode_step`` token by token, within 2e-3."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build, encdec
+
+    cfg = get_config("whisper-tiny")
+    model = build(cfg)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init_params(generator=g, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                         device="cuda", dtype=torch.int32)
+    frames = torch.randn((b, cfg.enc_len, cfg.d_model), generator=g,
+                         device="cuda").to(torch.bfloat16)
+    L, E = cfg.n_layers, cfg.n_enc_layers
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = model.forward(params, toks, frame_embeds=frames)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    if logits.shape != (b, s, cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"encdec forward: shape {tuple(logits.shape)} "
+                             "or non-finite logits")
+    state = model.init_decode_state(b, steps, device="cuda")
+    t0 = time.perf_counter()
+    state["cross_k"], state["cross_v"] = encdec.init_cross_cache(
+        params, frames, cfg)
+    torch.cuda.synchronize()
+    cross_ms = (time.perf_counter() - t0) * 1e3
+    tok, ids, step_ms = toks[:, :1], [], []
+    for t in range(steps):
+        t0 = time.perf_counter()
+        out = model.decode_step(params, state, tok, t)
+        tok = out[:, -1].argmax(-1).to(torch.int32)[:, None]
+        ids.append(int(tok[0, 0]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if not torch.isfinite(out).all():
+        raise AssertionError("encdec decode: non-finite logits")
+    counts = read_counts()
+    _expect("encdec", counts, {"K3": E + 2 * L + E + L * steps,
+                               "K4": L * steps})
+    profile = _profile_calls(
+        torch, lambda: model.decode_step(params, state, tok, steps - 1), n=4)
+    del params, state
+    cfg32 = _f32_cut(cfg)
+    model32 = build(cfg32)
+    params = model32.init_params(generator=g, device="cuda")
+    reset_counts()
+    err, logit_max = _decode_vs_forward(
+        torch, "encdec f32", model32, params, toks,
+        frame_embeds=frames.float())
+    torch.cuda.synchronize()
+    counts32 = read_counts()
+    _expect("encdec f32", counts32, {"K3": 2 * E + 2 * L + L * s,
+                                     "K4": L * s})
+    del params
+    _free()
+    return {"arch": cfg.name, "layers": [E, L], "enc_len": cfg.enc_len,
+            "b": b, "s": s, "dtype": "bfloat16", "forward_ms": fwd_ms,
+            "init_cross_cache_ms": cross_ms, "decode_steps": steps,
+            "decode_step_median_ms": float(np.median(step_ms)),
+            "greedy_ids_row0": ids,
+            "launches": {k: counts[k] + counts32[k] for k in counts},
+            "launches_bf16": counts, "profile_decode_step": profile,
+            "f32": {"b": b, "s": s, "tol": LOCKSTEP_TOL,
+                    "max_abs_err_decode_vs_forward_all_positions": err,
+                    "logit_abs_max": logit_max}}
+
+
 # ----------------------------------------------------------------- run
 
 def _kernel_name(mangled: str) -> str:
@@ -1784,7 +2212,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import ops as da
@@ -1833,37 +2260,54 @@ def main() -> int:
         device="cuda").manual_seed(args.seed), device="cuda")
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    rng = np.random.default_rng(args.seed)
-    prompts = [[_prompt(rng, a, t, int(rng.integers(200, 360)))
-                for t in range(2)] for a in range(N_AGENTS)]
+    prompts = make_prompts(args.seed)
+
+    t0 = time.perf_counter()
+
+    def done(name: str, row: dict):
+        """Emit a phase's line with its own seconds, counted from the end
+        of the phase before."""
+        nonlocal t0
+        emit({"phase": name, "card": smi,
+              "seconds": time.perf_counter() - t0, **row})
+        t0 = time.perf_counter()
 
     mega_toks, main = main_phase(torch, cfg, params, prompts, args.seed)
-    emit({"phase": "main", "card": smi, "init_s": t_init, **main})
+    done("main", {"init_s": t_init, **main})
     legacy = legacy_phase(torch, cfg, params, prompts, mega_toks, args.seed)
-    emit({"phase": "legacy", "card": smi, **legacy})
+    done("legacy", legacy)
     dense = dense_phase(torch, cfg, params, prompts)
-    emit({"phase": "dense", "card": smi, **dense})
+    done("dense", dense)
     del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     serve = serve_phase(torch, args.seed)
-    emit({"phase": "serve", "card": smi, **serve})
+    done("serve", serve)
     lockstep = lockstep_phase(torch, args.seed)
-    emit({"phase": "lockstep", "card": smi, **lockstep})
+    done("lockstep", lockstep)
     # the engines of the serving phases hold the gemma-2b params in
     # reference cycles: collect them, so each new phase's peak is its own
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     ssm = ssm_phase(torch, args.seed)
-    emit({"phase": "ssm", "card": smi, **ssm})
-    gc.collect()
-    torch.cuda.empty_cache()
+    done("ssm", ssm)
+    _free()
     hybrid = hybrid_phase(torch, args.seed)
-    emit({"phase": "hybrid", "card": smi, **hybrid})
+    done("hybrid", hybrid)
+    _free()
+    moe = moe_phase(torch, prompts, args.seed)
+    done("moe", moe)
+    mla = mla_phase(torch, args.seed)
+    done("mla", mla)
+    vlm = vlm_phase(torch, args.seed)
+    done("vlm", vlm)
+    starcoder2 = starcoder2_phase(torch)
+    done("starcoder2", starcoder2)
+    encdec = encdec_phase(torch, args.seed)
+    done("encdec", encdec)
 
     launches = {name: sum(p["launches"][name]
                           for p in (main, legacy, dense, serve, lockstep,
-                                    ssm, hybrid))
+                                    ssm, hybrid, moe, mla, vlm, starcoder2,
+                                    encdec))
                 for name in cases}
     src = "src/repro_torch/kernels/"
     ref = "src/repro/kernels/"

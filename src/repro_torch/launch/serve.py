@@ -52,7 +52,7 @@ from repro_torch.core import AgentRM, AgentRMConfig
 from repro_torch.core.scheduler.task import QueueClass
 from repro_torch.distributed.elastic import FleetBackend
 from repro_torch.distributed.sharding import validate_tp
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import build
 from repro_torch.obs import Observability, TraceConfig
 from repro_torch.serving import (BackpressureError, DiskTierKVSwapStore,
                                  EngineBackend, EngineLostError,
@@ -366,9 +366,7 @@ def main(argv=None) -> int:
     obs = build_obs(args)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(remat=False)
-    init = hybrid.init_params if cfg.family == "hybrid" else \
-        transformer.init_params
-    params = init(cfg, seed=0, device=args.device)
+    params = build(cfg).init_params(seed=0, device=args.device)
     engine, backend = build_backend(cfg, params, args, obs=obs)
     fleet = backend if isinstance(backend, FleetBackend) else None
     lanes = args.max_batch * args.fleet if args.paged else args.lanes

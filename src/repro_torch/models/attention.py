@@ -1,16 +1,23 @@
-"""GQA/MQA attention blocks, computing what ``repro.models.attention``
-computes on its executed path for the dense GQA family:
+"""Attention blocks, computing what ``repro.models.attention`` computes on
+its executed path: GQA/MQA/MHA with RoPE, and DeepSeek-V2's MLA.
 
-  * ``gqa_full`` — a full sequence (``forward``, dense prefill), through
-    ``layers.attention`` (kernel K3 on the card; a sliding window takes the
-    plain path, as in the reference);
+  * ``gqa_full`` — a full sequence (``forward``, dense prefill), causal or
+    not (the encoder), through ``layers.attention`` (kernel K3 on the card;
+    a sliding window takes the plain path, as in the reference);
+  * ``gqa_cross`` — queries against the encoder's precomputed K/V, not
+    causal (K3 on the card, at every query length);
   * ``gqa_decode`` — one token against a contiguous cache at a scalar or
     per-slot length (kernel K4);
   * ``gqa_decode_paged`` / ``gqa_prefill_chunk_paged`` — the legacy paged
     loop's decode (K2) and one sequence's prefill chunk (K1);
   * ``gqa_mixed_step_paged`` — the megastep's mixed batch (K1);
   * ``gqa_decode_ring`` — the hybrid's shared block at decode, one token
-    against a ring-buffer cache (K4).
+    against a ring-buffer cache (K4);
+  * ``mla_full`` — MLA over a full sequence, K/V decompressed per head
+    (K3 at d = qk_nope + qk_rope, dv = v_head_dim);
+  * ``mla_decode`` — MLA's absorbed decode over the latent
+    (c_kv, k_rope) cache at a scalar length, plain products as the
+    reference's are XLA einsums.
 
 ``use_pallas`` is not read: a CUDA tensor launches the Hopper kernel, a CPU
 tensor takes its plain version. Caches and pools are updated in place
@@ -18,13 +25,15 @@ where the reference returns new donated buffers. ``pairing`` follows
 ``cfg.gqa_mode`` everywhere, as the reference's executed path does."""
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.paged_attention import ops as pa
 from repro_torch.models.layers import _init, apply_rope, attention, \
-    rope_tables, simple_attention
+    rms_norm, rope_tables, simple_attention
 
 
 def init_gqa(cfg: ModelConfig, *, generator, device, dtype=torch.float32):
@@ -54,17 +63,53 @@ def _qkv(params, x, pos, cfg: ModelConfig):
     return q, k, v
 
 
-def gqa_full(params, x, cfg: ModelConfig, *, window: int = 0,
-             return_kv=False):
-    """x: (b, s, d) -> (b, s, d) causal attention output (and the rotated
-    (k, v) when ``return_kv``), positions 0..s-1, each query seeing the
-    last ``window`` keys (0: all)."""
+def _write_pages(k_pool, v_pool, bids, offs, k, v):
+    """k_pool[bids, offs] = k and v_pool[bids, offs] = v, in place.
+
+    Padding positions and idle rows all aim at the null block 0, so some of
+    its slots are written more than once, and torch leaves which write wins
+    undefined (on the CPU as on the card). The reference's scatter applies
+    its updates in order, so the last write in row-major order wins, and an
+    MoE's idle rows read that content: their tokens are routed and take
+    expert capacity from their batchmates. So every write to a slot carries
+    the value of the last one (the largest index aiming at it), and any
+    order gives the reference's content."""
+    blk = k_pool.shape[1]
+    flat = (bids.long() * blk + offs.long()).reshape(-1)
+    n = flat.numel()
+    last = torch.full((k_pool.shape[0] * blk,), -1, dtype=torch.long,
+                      device=flat.device)
+    last.scatter_reduce_(0, flat, torch.arange(n, device=flat.device), "amax")
+    src = last[flat]
+    k = k.reshape(n, *k.shape[-2:])[src].reshape(k.shape)
+    v = v.reshape(n, *v.shape[-2:])[src].reshape(v.shape)
+    k_pool.index_put_((bids.long(), offs.long()), k.to(k_pool.dtype))
+    v_pool.index_put_((bids.long(), offs.long()), v.to(v_pool.dtype))
+
+
+def gqa_full(params, x, cfg: ModelConfig, *, causal: bool = True,
+             window: int = 0, return_kv=False):
+    """x: (b, s, d) -> (b, s, d) attention output (and the rotated (k, v)
+    when ``return_kv``), positions 0..s-1; causal, or every query seeing
+    every key (the encoder); each query sees the last ``window`` keys (0:
+    all)."""
     b, s, _ = x.shape
     q, k, v = _qkv(params, x, torch.arange(s, device=x.device), cfg)
-    o = attention(q, k, v, causal=True, window=window,
+    o = attention(q, k, v, causal=causal, window=window,
                   gqa_mode=cfg.gqa_mode)
     out = o.reshape(b, s, -1) @ params["wo"]
     return (out, (k, v)) if return_kv else out
+
+
+def gqa_cross(params, x, kv, cfg: ModelConfig):
+    """Cross-attention: x (b, s, d) queries (no RoPE) against ``kv`` =
+    (k, v), each (b, s_enc, hkv, hd), precomputed from the encoder; every
+    query sees every key."""
+    b, s, _ = x.shape
+    q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, cfg.resolved_head_dim)
+    k, v = kv
+    o = attention(q, k, v, causal=False, gqa_mode=cfg.gqa_mode)
+    return o.reshape(b, s, -1) @ params["wo"]
 
 
 def gqa_decode(params, x, cache_k, cache_v, cache_len, cfg: ModelConfig):
@@ -115,8 +160,7 @@ def gqa_decode_paged(params, x, k_pool, v_pool, page_tables, cache_len,
     rows = torch.arange(b, device=x.device)
     bids = page_tables[rows, (cache_len // blk).long()].long()
     offs = (cache_len % blk).long()
-    k_pool[bids, offs] = k[:, 0].to(k_pool.dtype)
-    v_pool[bids, offs] = v[:, 0].to(v_pool.dtype)
+    _write_pages(k_pool, v_pool, bids, offs, k[:, 0], v[:, 0])
     o = pa.paged_attention(q.contiguous(), k_pool, v_pool,
                            (cache_len + 1).to(torch.int32), page_tables,
                            pairing=_pairing(cfg))
@@ -143,8 +187,7 @@ def gqa_prefill_chunk_paged(params, x, k_pool, v_pool, page_table, cache_len,
     bids = torch.where(live, page_table[page_idx],
                        torch.zeros_like(page_table[:1])).long()
     offs = (pos % blk).long()
-    k_pool[bids, offs] = k[0].to(k_pool.dtype)
-    v_pool[bids, offs] = v[0].to(v_pool.dtype)
+    _write_pages(k_pool, v_pool, bids, offs, k[0], v[0])
     lens = torch.tensor([cache_len], dtype=torch.int32, device=dev)
     valids = torch.tensor([valid], dtype=torch.int32, device=dev)
     o = pa.paged_prefill_attention(q.contiguous(), k_pool, v_pool, lens,
@@ -179,8 +222,7 @@ def gqa_mixed_step_paged(params, x, k_pool, v_pool, page_tables, cache_lens,
     bids = torch.where(live, torch.gather(page_tables, 1, page_idx),
                        torch.zeros_like(page_tables[:, :1]))
     offs = (pos % blk).long()
-    k_pool.index_put_((bids.long(), offs), k.to(k_pool.dtype))
-    v_pool.index_put_((bids.long(), offs), v.to(v_pool.dtype))
+    _write_pages(k_pool, v_pool, bids, offs, k, v)
     o = pa.paged_prefill_attention(q.contiguous(), k_pool, v_pool,
                                    cache_lens, valids, page_tables,
                                    pairing=_pairing(cfg))
@@ -214,3 +256,101 @@ def gqa_decode_ring(params, x, cache_k, cache_v, cache_len: int,
                              causal=False, kv_len=kv_len,
                              pairing=_pairing(cfg))
     return o.reshape(b, 1, -1) @ params["wo"]
+
+
+# ------------------------------------------------------------------ MLA
+
+def init_mla(cfg: ModelConfig, *, generator, device, dtype=torch.float32):
+    m: MLAConfig = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    return {
+        "wq": _init((d, h * qk), **kw),
+        # joint down-projection: [c_kv (rank) | k_rope (rope_dim)]
+        "w_dkv": _init((d, m.kv_lora_rank + m.qk_rope_head_dim), **kw),
+        "kv_norm": torch.zeros((m.kv_lora_rank,), device=device,
+                               dtype=dtype),
+        # up-projections from the latent: per head [k_nope | v]
+        "w_uk": _init((m.kv_lora_rank, h * m.qk_nope_head_dim), **kw),
+        "w_uv": _init((m.kv_lora_rank, h * m.v_head_dim), **kw),
+        "wo": _init((h * m.v_head_dim, d), **kw)}
+
+
+def _mla_qkv(params, x, cfg: ModelConfig, positions):
+    """x: (b, s, d) -> q_nope (b, s, h, nope), q_rope (b, s, h, rope), the
+    normed latent c_kv (b, s, rank) and the shared k_rope (b, s, rope),
+    both ropes rotated at ``positions``."""
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, qk)
+    q_nope, q_rope = q[..., : m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    dkv = x @ params["w_dkv"]
+    c_kv = rms_norm(dkv[..., : m.kv_lora_rank], params["kv_norm"],
+                    cfg.norm_eps)
+    k_rope = dkv[..., m.kv_lora_rank:]
+    cos, sin = rope_tables(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope[..., None, :], cos, sin)[..., 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_scale(m: MLAConfig) -> float:
+    return 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+
+def mla_full(params, x, cfg: ModelConfig, *, return_kv=False):
+    """x: (b, s, d) -> (b, s, d) causal output, positions 0..s-1 (and the
+    cache entries (c_kv, k_rope) when ``return_kv``). K/V are decompressed
+    per head: q and k are [nope | rope] (the rope half of k shared by the
+    heads), v is v_head_dim wide, so attention runs at d != dv."""
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    pos = torch.arange(s, device=x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, cfg, pos)
+    k_nope = (c_kv @ params["w_uk"]).reshape(b, s, h, m.qk_nope_head_dim)
+    v = (c_kv @ params["w_uv"]).reshape(b, s, h, m.v_head_dim)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, h, m.qk_rope_head_dim)], dim=-1)
+    o = attention(q_full, k_full, v, causal=True, scale=_mla_scale(m))
+    out = o.reshape(b, s, h * m.v_head_dim) @ params["wo"]
+    return (out, (c_kv, k_rope)) if return_kv else out
+
+
+def mla_decode(params, x, cache_ckv, cache_krope, cache_len,
+               cfg: ModelConfig):
+    """Absorbed decode: x (b, 1, d) at the scalar position ``cache_len``
+    against the latent caches cache_ckv (b, S, rank) and cache_krope
+    (b, S, rope), this token's entries written IN PLACE there; returns the
+    (b, 1, d) output. W_uk is absorbed into q and W_uv applied after the
+    latent output, so the cache stays rank + rope wide. A per-slot length
+    vector is refused, where the reference fails on it
+    (``jnp.full((1,), cache_len)``)."""
+    if torch.is_tensor(cache_len) and cache_len.ndim:
+        raise ValueError(f"mla_decode takes a scalar cache_len, not shape "
+                         f"{tuple(cache_len.shape)}: the reference's MLA "
+                         "decode has no per-slot lengths")
+    m: MLAConfig = cfg.mla
+    b = x.shape[0]
+    h = cfg.n_heads
+    cache_len = int(cache_len)
+    pos = torch.tensor([cache_len], device=x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, cfg, pos)
+    cache_ckv[:, cache_len] = c_kv[:, 0].to(cache_ckv.dtype)
+    cache_krope[:, cache_len] = k_rope[:, 0].to(cache_krope.dtype)
+    w_uk = params["w_uk"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)
+    s_lat = torch.einsum("bqhr,bkr->bhqk", q_lat.float(), cache_ckv.float())
+    s_rope = torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
+                          cache_krope.float())
+    s = (s_lat + s_rope) * _mla_scale(m)
+    kpos = torch.arange(cache_ckv.shape[1], device=x.device)
+    s = s.masked_fill(kpos >= cache_len + 1, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhqk,bkr->bqhr", p.to(cache_ckv.dtype), cache_ckv)
+    w_uv = params["w_uv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    o = torch.einsum("bqhr,rhd->bqhd", o_lat, w_uv)
+    return o.reshape(b, 1, h * m.v_head_dim) @ params["wo"]

@@ -1,0 +1,172 @@
+"""Whisper-style encoder-decoder backbone, the port of
+``repro.models.encdec``, run eagerly. The conv audio frontend is a stub:
+``frame_embeds`` (b, enc_len, d) arrive precomputed.
+
+Learned absolute positions (``rotary_pct = 0``: no RoPE), a bidirectional
+encoder, a causal decoder with cross-attention to the encoder's output.
+The decoder's position table holds ``MAX_DEC_POS`` positions.
+
+  * ``encode`` — the encoder (K3, not causal, in every layer on the card);
+  * ``forward`` — teacher-forced decoder logits over the text (K3 causal
+    for self-attention, K3 not causal for cross-attention at sq = s_text);
+  * ``init_decode_state`` / ``init_cross_cache`` / ``decode_step`` — the
+    session's caches: self-attention K/V written one token a step (K4) and
+    each layer's cross K/V precomputed once from the encoder (K3, not
+    causal, at sq = 1).
+
+The reference has no encoder-decoder prefill and no paged members, and its
+engines refuse the family. Params are the prepared dict of
+``repro_torch.weights`` (``enc_layers`` and ``layers`` as lists; ``lm_head``
+replaced by the f32 ``unembed``). Caches are updated in place.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import _init, apply_mlp, init_mlp, rms_norm
+from repro_torch.models.transformer import _unembed
+from repro_torch.weights import prepare_params
+
+MAX_DEC_POS = 32768
+
+
+def _check_supported(cfg: ModelConfig):
+    if not cfg.is_encoder_decoder:
+        raise NotImplementedError(f"{cfg.name}: models.encdec serves the "
+                                  "encoder-decoder family alone")
+
+
+def _enc_layer(cfg: ModelConfig, kw: dict) -> Dict:
+    zeros = dict(device=kw["device"], dtype=kw["dtype"])
+    return {"attn_norm": torch.zeros((cfg.d_model,), **zeros),
+            "attn": attn_mod.init_gqa(cfg, **kw),
+            "mlp_norm": torch.zeros((cfg.d_model,), **zeros),
+            "mlp": init_mlp(cfg.d_model, cfg.d_ff, cfg.act, **kw)}
+
+
+def _dec_layer(cfg: ModelConfig, kw: dict) -> Dict:
+    p = _enc_layer(cfg, kw)
+    p["cross_norm"] = torch.zeros((cfg.d_model,), device=kw["device"],
+                                  dtype=kw["dtype"])
+    p["cross"] = attn_mod.init_gqa(cfg, **kw)
+    return p
+
+
+def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
+                = None, seed: int = 0, device="cuda") -> Dict:
+    """Random params drawn on ``device`` with a seeded torch generator (the
+    reference's init distribution, torch's random numbers), prepared as
+    ``weights.prepare_params`` does."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(seed)
+    ct = torch_dtype(cfg.compute_dtype)
+    kw = dict(generator=generator, device=dev, dtype=ct)
+    d = cfg.d_model
+    raw = {"embed": _init((cfg.vocab_size, d), scale=0.02, **kw),
+           "dec_pos": _init((MAX_DEC_POS, d), scale=0.02, **kw),
+           "enc_pos": _init((cfg.enc_len, d), scale=0.02, **kw),
+           "enc_layers": [_enc_layer(cfg, kw)
+                          for _ in range(cfg.n_enc_layers)],
+           "enc_final_norm": torch.zeros((d,), device=dev, dtype=ct),
+           "layers": [_dec_layer(cfg, kw) for _ in range(cfg.n_layers)],
+           "final_norm": torch.zeros((d,), device=dev, dtype=ct),
+           "lm_head": _init((d, cfg.vocab_size), **kw)}
+    return prepare_params(raw, cfg, dev)
+
+
+def _mlp(lp, x, cfg: ModelConfig):
+    return apply_mlp(lp["mlp"], rms_norm(x, lp["mlp_norm"], cfg.norm_eps),
+                     cfg.act)
+
+
+def encode(params, frame_embeds, cfg: ModelConfig):
+    """frame_embeds (b, s_enc, d) -> the encoder's normed output, same
+    shape, in the compute dtype."""
+    x = frame_embeds.to(torch_dtype(cfg.compute_dtype))
+    x = x + params["enc_pos"][: x.shape[1]].to(x.dtype)
+    for lp in params["enc_layers"]:
+        x = x + attn_mod.gqa_full(
+            lp["attn"], rms_norm(x, lp["attn_norm"], cfg.norm_eps), cfg,
+            causal=False)
+        x = x + _mlp(lp, x, cfg)
+    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _cross_kv(cp, enc, cfg: ModelConfig):
+    b, s, _ = enc.shape
+    hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    return ((enc @ cp["wk"]).reshape(b, s, hkv, hd),
+            (enc @ cp["wv"]).reshape(b, s, hkv, hd))
+
+
+def _cross(lp, x, kv, cfg: ModelConfig):
+    return attn_mod.gqa_cross(
+        lp["cross"], rms_norm(x, lp["cross_norm"], cfg.norm_eps), kv, cfg)
+
+
+def forward(params, tokens, cfg: ModelConfig, *, frame_embeds):
+    """tokens (b, s) int, frame_embeds (b, s_enc, d) -> logits (b, s, V)
+    float32 over the text."""
+    enc = encode(params, frame_embeds, cfg)
+    s = tokens.shape[1]
+    x = params["embed"][tokens.long()] + params["dec_pos"][:s]
+    for lp in params["layers"]:
+        x = x + attn_mod.gqa_full(
+            lp["attn"], rms_norm(x, lp["attn_norm"], cfg.norm_eps), cfg,
+            causal=True)
+        x = x + _cross(lp, x, _cross_kv(lp["cross"], enc, cfg), cfg)
+        x = x + _mlp(lp, x, cfg)
+    return _unembed(params, rms_norm(x, params["final_norm"], cfg.norm_eps))
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      device="cuda") -> Dict[str, torch.Tensor]:
+    """Zeroed caches in the KV cache dtype: self-attention ``k``/``v``
+    (L, batch, max_len, hkv, hd) and cross-attention ``cross_k``/
+    ``cross_v`` (L, batch, enc_len, hkv, hd)."""
+    _check_supported(cfg)
+    ct = torch_dtype(cfg.kv_cache_dtype or cfg.compute_dtype)
+    dev = resolve_device(device)
+    h, hd, L = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers
+    return {name: torch.zeros((L, batch, S, h, hd), dtype=ct, device=dev)
+            for name, S in (("k", max_len), ("v", max_len),
+                            ("cross_k", cfg.enc_len),
+                            ("cross_v", cfg.enc_len))}
+
+
+def init_cross_cache(params, frame_embeds, cfg: ModelConfig
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the encoder and precompute every decoder layer's cross K/V (the
+    session's start): (cross_k, cross_v), each (L, b, s_enc, hkv, hd), for
+    the decode state's ``cross_k`` / ``cross_v``."""
+    enc = encode(params, frame_embeds, cfg)
+    kvs = [_cross_kv(lp["cross"], enc, cfg) for lp in params["layers"]]
+    return (torch.stack([k for k, _ in kvs]),
+            torch.stack([v for _, v in kvs]))
+
+
+def decode_step(params, state: Dict, token, cache_len, cfg: ModelConfig):
+    """token (b, 1) at the scalar position ``cache_len`` -> logits
+    (b, 1, V) float32; the self-attention caches of ``state`` are written
+    in place, its cross K/V read."""
+    if torch.is_tensor(cache_len) and cache_len.ndim:
+        raise ValueError("the encoder-decoder decodes at a scalar cache_len, "
+                         "as the reference does")
+    cache_len = int(cache_len)
+    x = params["embed"][token.long()] \
+        + params["dec_pos"][cache_len:cache_len + 1]
+    for li, lp in enumerate(params["layers"]):
+        x = x + attn_mod.gqa_decode(
+            lp["attn"], rms_norm(x, lp["attn_norm"], cfg.norm_eps),
+            state["k"][li], state["v"][li], cache_len, cfg)
+        x = x + _cross(lp, x, (state["cross_k"][li], state["cross_v"][li]),
+                       cfg)
+        x = x + _mlp(lp, x, cfg)
+    return _unembed(params, rms_norm(x, params["final_norm"], cfg.norm_eps))

@@ -1,6 +1,7 @@
 """``build(cfg)``: the model namespace the engines use, with ``cfg`` bound
-(the port of ``repro.models.model.build`` for the dense GQA, SSM and
-hybrid families)."""
+(the port of ``repro.models.model.build``, for every architecture of the
+registry). A member the reference lacks for a family raises
+``NotImplementedError`` when called, naming why."""
 from __future__ import annotations
 
 import functools
@@ -8,18 +9,22 @@ from dataclasses import dataclass
 from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import encdec, hybrid, transformer
 
 
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-    # (params, tokens (b, s)) -> logits (b, s, V) f32
+    # (*, generator=None, seed=0, device="cuda") -> random params, prepared
+    init_params: Callable
+    # (params, tokens (b, s), **inputs) -> logits (b, s, V) f32 over the
+    # text; inputs: patch_embeds= (VLM), frame_embeds= (encoder-decoder)
     forward: Callable
     # (batch, max_len, device="cuda") -> the decode state: K/V caches,
     # or conv/SSD states and rings
     init_decode_state: Callable
-    # (params, tokens, *, state) -> last logits (b, 1, V); fills state
+    # (params, tokens, *, state, **inputs) -> last logits (b, 1, V); fills
+    # state
     prefill: Callable
     # (params, state, token (b, 1), cache_len int | (b,)) -> (b, 1, V)
     decode_step: Callable
@@ -41,13 +46,27 @@ def _lacks(cfg: ModelConfig, member: str, why: str) -> Callable:
 
 
 def build(cfg: ModelConfig) -> Model:
-    """Raises ``NotImplementedError`` for a family the port does not serve
-    yet (MoE, MLA, enc-dec, VLM)."""
-    if cfg.family == "hybrid":
-        hybrid._check_supported(cfg)
-        paged = "the paged pools hold the GQA family's K/V alone"
+    paged = "the paged pools hold the GQA family's K/V alone"
+    if cfg.is_encoder_decoder:
+        encdec._check_supported(cfg)
         return Model(
             cfg=cfg,
+            init_params=functools.partial(encdec.init_params, cfg),
+            forward=functools.partial(encdec.forward, cfg=cfg),
+            init_decode_state=functools.partial(encdec.init_decode_state,
+                                                cfg),
+            prefill=_lacks(cfg, "prefill", "the reference's encoder-decoder "
+                           "has none; run encdec.init_cross_cache, then "
+                           "decode_step"),
+            decode_step=functools.partial(encdec.decode_step, cfg=cfg),
+            decode_step_paged=_lacks(cfg, "decode_step_paged", paged),
+            prefill_chunk_paged=_lacks(cfg, "prefill_chunk_paged", paged),
+            mixed_step_paged=_lacks(cfg, "mixed_step_paged", paged))
+    if cfg.family == "hybrid":
+        hybrid._check_supported(cfg)
+        return Model(
+            cfg=cfg,
+            init_params=functools.partial(hybrid.init_params, cfg),
             forward=functools.partial(hybrid.forward, cfg=cfg),
             init_decode_state=functools.partial(hybrid.init_decode_state,
                                                 cfg),
@@ -62,10 +81,13 @@ def build(cfg: ModelConfig) -> Model:
     def bind(fn):
         return functools.partial(fn, cfg=cfg)
 
-    if cfg.family == "ssm":
-        paged = "an SSM keeps no K/V for the paged pools"
+    if cfg.family == "ssm" or cfg.mla is not None:
+        paged = ("an SSM keeps no K/V for the paged pools"
+                 if cfg.family == "ssm" else
+                 "the reference's paged pools assert mla is None")
         return Model(
             cfg=cfg,
+            init_params=functools.partial(transformer.init_params, cfg),
             forward=bind(transformer.forward),
             init_decode_state=functools.partial(transformer.init_decode_state,
                                                 cfg),
@@ -76,6 +98,7 @@ def build(cfg: ModelConfig) -> Model:
             mixed_step_paged=_lacks(cfg, "mixed_step_paged", paged))
     return Model(
         cfg=cfg,
+        init_params=functools.partial(transformer.init_params, cfg),
         forward=bind(transformer.forward),
         init_decode_state=functools.partial(transformer.init_decode_state,
                                             cfg),

@@ -1,5 +1,5 @@
-"""Decoder-only LM, the dense GQA and the Mamba-2 SSM families: the port
-of ``repro.models.transformer``, run eagerly.
+"""Decoder-only LM: the dense GQA, MoE, MLA, VLM and Mamba-2 SSM families,
+the port of ``repro.models.transformer``, run eagerly.
 
   * ``forward`` — logits over a full sequence (teacher forcing);
   * ``init_decode_state`` / ``prefill`` / ``decode_step`` — the contiguous
@@ -8,6 +8,18 @@ of ``repro.models.transformer``, run eagerly.
     — the legacy paged loop;
   * ``mixed_step_paged`` — the megastep: one call advances the whole mixed
     batch one engine iteration.
+
+Each layer is attention (GQA, or MLA where ``cfg.mla`` is set) then an MLP,
+or a routed MoE where ``cfg.moe`` is set (``models.moe``: every token of
+the call is routed, padding columns included, so which tokens a full
+expert drops depends on the whole batch, as in the reference). An MoE
+stack with ``first_dense_layers`` (deepseek-v2-lite) keeps that leading
+dense layer apart as ``dense0``, with its own MLA caches ``ckv0`` /
+``krope0``; the rest are ``layers``. The VLM family (llava) prepends
+``patch_embeds`` to the text in ``forward`` and ``prefill`` and drops the
+image positions from the logits; its paged members are text only. An MLA
+caches the latent (c_kv, k_rope) and decodes at a scalar length; it has no
+paged members, as in the reference.
 
 The SSM family (``family == "ssm"``, mamba2-370m) runs ``forward``,
 ``init_decode_state``, ``prefill`` and ``decode_step``: a stack of Mamba-2
@@ -18,7 +30,8 @@ members are the GQA family's alone, as in the reference.
 Params are the prepared dict of ``repro_torch.weights`` (compute dtype,
 layers as a list). Caches and pools are device tensors updated in place,
 where the reference returns new donated buffers; the functions return only
-their logits or ids.
+their logits or ids. The MoE aux and z losses are training metrics, and
+``forward`` returns logits alone.
 """
 from __future__ import annotations
 
@@ -29,28 +42,44 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.layers import _init, apply_mlp, init_mlp, rms_norm
 from repro_torch.weights import prepare_params
 
 
 def _check_supported(cfg: ModelConfig):
-    if cfg.family not in ("dense", "ssm") or cfg.moe is not None \
-            or cfg.mla is not None or cfg.first_dense_layers:
+    if cfg.family not in ("dense", "moe", "vlm", "ssm") \
+            or cfg.is_encoder_decoder or cfg.first_dense_layers > 1:
         raise NotImplementedError(
-            f"{cfg.name}: this module serves the dense GQA and the SSM "
-            "families (the hybrid is models.hybrid); MoE, MLA, enc-dec and "
-            "VLM stacks come in a later slice")
+            f"{cfg.name}: this module serves the decoder-only families "
+            "(dense, MoE, MLA, VLM, SSM; at most one leading dense layer); "
+            "the hybrid is models.hybrid, the encoder-decoder models.encdec")
 
 
 def check_gqa_family(cfg: ModelConfig):
     """The paged pools and both serving engines hold attention K/V: the
-    reference admits only the decoder-only GQA family there."""
+    reference admits the decoder-only GQA families there (dense, MoE, VLM)
+    and no MLA or encoder-decoder."""
     if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: paged KV pools and the serving engines target the "
             f"decoder-only GQA family, not {cfg.family!r} (as in the "
             "reference); serve it through decode_step")
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: the reference's engines refuse the "
+            "encoder-decoder (they assert family in dense/moe/vlm, "
+            "serving/engine.py:42, serving/paging/engine.py:158); serve it "
+            "through models.encdec's init_cross_cache and decode_step")
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the reference serves no MLA engine: its paged "
+            "pools assert mla is None (models/transformer.py:285), and its "
+            "InferenceEngine admits MLA but fails at the first decode step, "
+            "mla_decode taking a scalar cache_len (models/attention.py:389) "
+            "under per-slot lengths; serve it through prefill and "
+            "decode_step at a scalar cache_len")
     _check_supported(cfg)
 
 
@@ -73,15 +102,29 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
                           "mamba": ssd_mod.init_mamba(cfg, **kw)}
                          for _ in range(cfg.n_layers)]
     else:
-        raw["layers"] = [
-            {"attn_norm": torch.zeros((cfg.d_model,), **zeros),
-             "mlp_norm": torch.zeros((cfg.d_model,), **zeros),
-             "attn": attn_mod.init_gqa(cfg, **kw),
-             "mlp": init_mlp(cfg.d_model, cfg.d_ff, cfg.act, **kw)}
-            for _ in range(cfg.n_layers)]
+        n_scan = cfg.n_layers - cfg.first_dense_layers
+        raw["layers"] = [_init_layer(cfg, kw) for _ in range(n_scan)]
+        if cfg.first_dense_layers:
+            raw["dense0"] = _init_layer(cfg, kw,
+                                        dense_ff=cfg.first_dense_d_ff)
     if not cfg.tie_embeddings:
         raw["lm_head"] = _init((cfg.d_model, cfg.vocab_size), **kw)
     return prepare_params(raw, cfg, dev)
+
+
+def _init_layer(cfg: ModelConfig, kw: dict, dense_ff: int = 0) -> Dict:
+    """One transformer layer; ``dense_ff`` > 0 forces a dense MLP of that
+    width (deepseek-v2-lite's layer 0)."""
+    zeros = dict(device=kw["device"], dtype=kw["dtype"])
+    p = {"attn_norm": torch.zeros((cfg.d_model,), **zeros),
+         "mlp_norm": torch.zeros((cfg.d_model,), **zeros),
+         "attn": (attn_mod.init_mla(cfg, **kw) if cfg.mla is not None
+                  else attn_mod.init_gqa(cfg, **kw))}
+    if dense_ff or cfg.moe is None:
+        p["mlp"] = init_mlp(cfg.d_model, dense_ff or cfg.d_ff, cfg.act, **kw)
+    else:
+        p["moe"] = moe_mod.init_moe(cfg, **kw)
+    return p
 
 
 def init_paged_pools(cfg: ModelConfig, num_blocks: int, block_size: int,
@@ -108,21 +151,39 @@ def _embed(params, tokens, cfg: ModelConfig):
     return x
 
 
+def _assemble_input(params, tokens, cfg: ModelConfig, patch_embeds):
+    """The text embeddings, behind the image's patch embeddings for a VLM
+    (b, n_image_tokens, d), as the reference's ``_assemble_input``."""
+    x = _embed(params, tokens, cfg)
+    if cfg.family == "vlm":
+        if patch_embeds is None:
+            raise ValueError(f"{cfg.name}: a VLM's forward and prefill take "
+                             "patch_embeds (b, n_image_tokens, d_model)")
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
 def _unembed(params, h):
     return h.float() @ params["unembed"]
 
 
 def _mlp(lp, x, cfg: ModelConfig):
-    return apply_mlp(lp["mlp"], rms_norm(x, lp["mlp_norm"], cfg.norm_eps),
-                     cfg.act)
+    """The layer's MLP, or its routed MoE (aux losses dropped)."""
+    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    if "moe" in lp:
+        return moe_mod.apply_moe(lp["moe"], h, cfg)[0]
+    return apply_mlp(lp["mlp"], h, cfg.act)
 
 
 # ------------------------------------------------------------ full forward
 
 def _layer_full(x, lp, cfg: ModelConfig, return_kv=False):
+    """One layer over the sequence; with ``return_kv`` also its cache
+    entries: the rotated (k, v), or MLA's (c_kv, k_rope)."""
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    a, kv = (attn_mod.gqa_full(lp["attn"], h, cfg, return_kv=True)
-             if return_kv else (attn_mod.gqa_full(lp["attn"], h, cfg), None))
+    full = attn_mod.mla_full if cfg.mla is not None else attn_mod.gqa_full
+    a, kv = (full(lp["attn"], h, cfg, return_kv=True) if return_kv
+             else (full(lp["attn"], h, cfg), None))
     x = x + a
     return x + _mlp(lp, x, cfg), kv
 
@@ -135,72 +196,114 @@ def _mamba_full(lp, x, cfg: ModelConfig):
     return x + y, st
 
 
-def forward(params, tokens, cfg: ModelConfig):
-    """tokens: (b, s) int -> logits (b, s, V) float32, every position. An
-    SSM's s must be at most its chunk or a multiple of it."""
-    x = _embed(params, tokens, cfg)
-    for lp in params["layers"]:
-        if cfg.family == "ssm":
+def _stack(params):
+    """The attention layers in order: ``dense0`` (where there is one), then
+    ``layers``."""
+    return ([params["dense0"]] if "dense0" in params else []) \
+        + params["layers"]
+
+
+def forward(params, tokens, cfg: ModelConfig, *, patch_embeds=None):
+    """tokens: (b, s) int -> logits (b, s, V) float32, every text
+    position. A VLM takes ``patch_embeds`` (b, n_image_tokens, d) ahead of
+    the text. An SSM's s must be at most its chunk or a multiple of it."""
+    x = _assemble_input(params, tokens, cfg, patch_embeds)
+    if cfg.family == "ssm":
+        for lp in params["layers"]:
             x, _ = _mamba_full(lp, x, cfg)
-        else:
+    else:
+        for lp in _stack(params):
             x, _ = _layer_full(x, lp, cfg)
-    return _unembed(params, rms_norm(x, params["final_norm"], cfg.norm_eps))
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.family == "vlm":
+        x = x[:, cfg.n_image_tokens:]
+    return _unembed(params, x)
 
 
 # ------------------------------------------------------------------ decode
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device="cuda") -> Dict[str, torch.Tensor]:
-    """Zeroed contiguous KV cache: ``k``/``v`` of shape
-    (L, batch, max_len, hkv, hd) in the KV cache dtype. For the SSM family
-    (no KV, ``max_len`` unused): ``conv`` (L, batch, K-1, conv_dim) in the
-    cache dtype and ``ssm`` (L, batch, g, h/g, n, p) float32."""
+    """Zeroed contiguous KV cache in the KV cache dtype: ``k``/``v`` of
+    shape (L, batch, max_len, hkv, hd). An MLA caches its latent instead:
+    ``ckv`` (L, batch, max_len, rank) and ``krope`` (L, batch, max_len,
+    rope) over ``layers``, and ``ckv0``/``krope0`` (batch, max_len, ...)
+    for ``dense0``. For the SSM family (no KV, ``max_len`` unused):
+    ``conv`` (L, batch, K-1, conv_dim) in the cache dtype and ``ssm``
+    (L, batch, g, h/g, n, p) float32."""
     _check_supported(cfg)
     ct = torch_dtype(cfg.kv_cache_dtype or cfg.compute_dtype)
     dev = resolve_device(device)
+
+    def zeros(*shape, dtype=ct):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
     if cfg.family == "ssm":
         m, _, h, conv_dim = ssd_mod._dims(cfg)
-        return {"conv": torch.zeros((cfg.n_layers, batch, m.conv_kernel - 1,
-                                     conv_dim), dtype=ct, device=dev),
-                "ssm": torch.zeros((cfg.n_layers, batch, m.n_groups,
-                                    h // m.n_groups, m.d_state, m.head_dim),
-                                   dtype=torch.float32, device=dev)}
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=ct, device=dev),
-            "v": torch.zeros(shape, dtype=ct, device=dev)}
+        return {"conv": zeros(cfg.n_layers, batch, m.conv_kernel - 1,
+                              conv_dim),
+                "ssm": zeros(cfg.n_layers, batch, m.n_groups,
+                             h // m.n_groups, m.d_state, m.head_dim,
+                             dtype=torch.float32)}
+    n_scan = cfg.n_layers - cfg.first_dense_layers
+    if cfg.mla is not None:
+        r, rd = cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim
+        st = {"ckv": zeros(n_scan, batch, max_len, r),
+              "krope": zeros(n_scan, batch, max_len, rd)}
+        if cfg.first_dense_layers:
+            st.update(ckv0=zeros(batch, max_len, r),
+                      krope0=zeros(batch, max_len, rd))
+        return st
+    shape = (n_scan, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": zeros(*shape), "v": zeros(*shape)}
 
 
 def _fill(cache, new):
-    """Write prefill K/V (b, s, hkv, hd) into positions 0.. of one layer's
+    """Write prefill entries (b, s, ...) into positions 0.. of one layer's
     cache, in place."""
     cache[:, :new.shape[1]] = new.to(cache.dtype)
 
 
-def prefill(params, tokens, cfg: ModelConfig, *, state: Dict):
+def _layer_caches(state: Dict, cfg: ModelConfig, li: int):
+    """The two caches of attention layer ``li`` of ``_stack``, as views of
+    ``state``."""
+    if cfg.mla is None:
+        return state["k"][li], state["v"][li]
+    if cfg.first_dense_layers:
+        if li == 0:
+            return state["ckv0"], state["krope0"]
+        li -= 1
+    return state["ckv"][li], state["krope"][li]
+
+
+def prefill(params, tokens, cfg: ModelConfig, *, state: Dict,
+            patch_embeds=None):
     """Full-sequence prefill. tokens: (b, s) -> the last position's logits
-    (b, 1, V) float32; each layer's K/V is written into positions [0, s)
-    of ``state`` (the dict of ``init_decode_state``, or views of one), in
-    place. An SSM writes each layer's ``conv`` window and final ``ssm``
-    state instead; its s must be at most its chunk or a multiple of it."""
-    x = _embed(params, tokens, cfg)
-    for li, lp in enumerate(params["layers"]):
-        if cfg.family == "ssm":
+    (b, 1, V) float32; each layer's cache entries are written into
+    positions [0, s) of ``state`` (the dict of ``init_decode_state``, or
+    views of one), in place. A VLM's ``patch_embeds`` go ahead of the text
+    and fill the first n_image_tokens positions. An SSM writes each
+    layer's ``conv`` window and final ``ssm`` state instead; its s must be
+    at most its chunk or a multiple of it."""
+    x = _assemble_input(params, tokens, cfg, patch_embeds)
+    if cfg.family == "ssm":
+        for li, lp in enumerate(params["layers"]):
             x, (conv, ssm) = _mamba_full(lp, x, cfg)
             state["conv"][li] = conv
             state["ssm"][li] = ssm
-            continue
-        x, (k, v) = _layer_full(x, lp, cfg, return_kv=True)
-        _fill(state["k"][li], k)
-        _fill(state["v"][li], v)
+    else:
+        for li, lp in enumerate(_stack(params)):
+            x, kv = _layer_full(x, lp, cfg, return_kv=True)
+            for cache, new in zip(_layer_caches(state, cfg, li), kv):
+                _fill(cache, new)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(params, x[:, -1:])
 
 
-def _layer_decode(lp, x, k_cache, v_cache, cache_len, cfg: ModelConfig):
+def _layer_decode(lp, x, caches, cache_len, cfg: ModelConfig):
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    x = x + attn_mod.gqa_decode(lp["attn"], h, k_cache, v_cache, cache_len,
-                                cfg)
+    dec = attn_mod.mla_decode if cfg.mla is not None else attn_mod.gqa_decode
+    x = x + dec(lp["attn"], h, *caches, cache_len, cfg)
     return x + _mlp(lp, x, cfg)
 
 
@@ -217,14 +320,16 @@ def _mamba_decode(lp, x, conv, ssm, cfg: ModelConfig):
 def decode_step(params, state: Dict, token, cache_len, cfg: ModelConfig):
     """token (b, 1) -> logits (b, 1, V) float32; ``state`` is updated in
     place. cache_len: an int (every row at one depth: the lockstep decode)
-    or a (b,) int32 tensor (per-slot depths); an SSM does not read it."""
+    or a (b,) int32 tensor (per-slot depths; not for an MLA, whose decode
+    takes a scalar as the reference's does); an SSM does not read it."""
     x = _embed(params, token, cfg)
-    for li, lp in enumerate(params["layers"]):
-        if cfg.family == "ssm":
+    if cfg.family == "ssm":
+        for li, lp in enumerate(params["layers"]):
             x = _mamba_decode(lp, x, state["conv"][li], state["ssm"][li], cfg)
-            continue
-        x = _layer_decode(lp, x, state["k"][li], state["v"][li], cache_len,
-                          cfg)
+    else:
+        for li, lp in enumerate(_stack(params)):
+            x = _layer_decode(lp, x, _layer_caches(state, cfg, li),
+                              cache_len, cfg)
     return _unembed(params, rms_norm(x, params["final_norm"], cfg.norm_eps))
 
 

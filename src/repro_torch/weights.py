@@ -107,9 +107,13 @@ def params_from_jax(np_tree: Dict, cfg: ModelConfig,
                     device="cuda") -> Dict:
     """The reference's ``init_params`` pytree (numpy leaves) as the port's
     params on ``device``: ``layers`` stacked (L, ...) becomes a list of L
-    dicts; the hybrid's ``groups`` stacked (G, E, ...) a list of G lists of
-    E dicts and its ``tail`` (T, ...) a list of T dicts; ``shared`` and the
-    rest stay as they are."""
+    dicts, and so does the encoder's ``enc_layers``; the hybrid's
+    ``groups`` stacked (G, E, ...) a list of G lists of E dicts and its
+    ``tail`` (T, ...) a list of T dicts; ``shared``, ``dense0`` (an MoE
+    stack's unstacked leading layer) and the rest stay as they are. The MoE
+    router is rounded to the compute dtype like every float, and the
+    router widens it to f32 for its product, which is what the reference's
+    ``cast_floats`` and then ``.astype(f32)`` compute."""
     device = resolve_device(device)     # fail before converting anything
 
     def conv(x):
@@ -117,6 +121,6 @@ def params_from_jax(np_tree: Dict, cfg: ModelConfig,
             return {k: conv(v) for k, v in x.items()}
         return numpy_to_torch(x)
 
-    depth = {"layers": 1, "groups": 2, "tail": 1}
+    depth = {"layers": 1, "enc_layers": 1, "groups": 2, "tail": 1}
     raw = {k: _unstack(conv(v), depth.get(k, 0)) for k, v in np_tree.items()}
     return prepare_params(raw, cfg, device)

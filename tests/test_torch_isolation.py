@@ -32,13 +32,17 @@ core/context/manager.py core/scheduler/scenarios.py core/scheduler/simulator.py
 core/scheduler/__init__.py core/context/sessions.py core/context/evaluate.py
 core/context/__init__.py serving/journal.py serving/paging/disktier.py
 serving/paging/__init__.py serving/__init__.py faults/__init__.py
-faults/plan.py faults/inject.py distributed/elastic.py""".split()
+faults/plan.py faults/inject.py distributed/elastic.py configs/__init__.py
+configs/deepseek_v2_lite_16b.py configs/llama4_scout_17b_a16e.py
+configs/llava_next_mistral_7b.py configs/starcoder2_7b.py
+configs/whisper_tiny.py""".split()
 
 
 def _port_sources():
-    """The package, chip_smoke.py and the tests run on the card."""
+    """The package, the scripts run on the card and the tests run there."""
     return sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_gpu.py"]
+        ROOT / "chip_smoke.py", ROOT / "megastep_ab.py",
+        ROOT / "tests" / "test_torch_kernels_gpu.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -86,6 +90,7 @@ def test_engine_defaults_to_the_card():
         pytest.skip("a card is present, so the default device is usable")
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import serve
+    from repro_torch.models import encdec
     from repro_torch.models.transformer import init_decode_state, init_params
     from repro_torch.serving import InferenceEngine, PagedInferenceEngine
     from repro_torch.serving.paging.pool import PagedKVCache
@@ -102,6 +107,11 @@ def test_engine_defaults_to_the_card():
         init_decode_state(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="cuda"):
         init_params(cfg)
+    whisper = get_smoke_config("whisper-tiny")
+    with pytest.raises(RuntimeError, match="cuda"):
+        encdec.init_params(whisper)
+    with pytest.raises(RuntimeError, match="cuda"):
+        encdec.init_decode_state(whisper, 1, 8)
     with pytest.raises(RuntimeError, match="cuda"):
         PagedKVCache(cfg, num_blocks=4, block_size=8)
     with pytest.raises(RuntimeError, match="cuda"):

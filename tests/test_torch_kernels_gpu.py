@@ -85,16 +85,20 @@ def dense_case(b, s_q, s_kv, hq, hkv, d, dv, seed):
 # (b, hq, hkv, d, dv, npages); blk 16 is gemma-2b's serving page size
 DECODE_SHAPES = [(3, 4, 2, 32, 32, 4), (2, 8, 1, 64, 32, 3),
                  (4, 8, 1, 256, 256, 6)]
-# (b, sq, hq, hkv, d, dv, causal): ragged sq, MQA, GQA, dv != d, and
-# zamba2-7b's heads (d = 112, g = 1)
+# (b, sq, hq, hkv, d, dv, causal): ragged sq, MQA, GQA, dv != d,
+# zamba2-7b's heads (d = 112, g = 1) and deepseek-v2-lite's MLA forward
+# (16 heads, d 192, dv 128, 2 rows of 512)
 FLASH_SHAPES = [(2, 33, 4, 2, 64, 64, True), (1, 96, 8, 1, 256, 256, True),
                 (2, 40, 4, 1, 64, 32, False), (1, 7, 6, 6, 32, 32, True),
                 (1, 130, 4, 2, 128, 128, True),
-                (1, 130, 4, 4, 112, 112, True)]
+                (1, 130, 4, 4, 112, 112, True),
+                (2, 512, 16, 16, 192, 128, True)]
 # (b, S, hq, hkv, d, dv); S = 1003 lies off every split, with a row of
-# length 1 in it
+# length 1 in it; llava-next's decode after its image prefix (hq 32, hkv 8,
+# d 128, a 656-position cache)
 DENSE_DECODE_SHAPES = [(4, 100, 8, 1, 256, 256), (2, 64, 4, 2, 32, 32),
-                       (3, 48, 4, 4, 64, 32), (2, 1003, 8, 2, 64, 64)]
+                       (3, 48, 4, 4, 64, 32), (2, 1003, 8, 2, 64, 64),
+                       (2, 656, 32, 8, 128, 128)]
 DTYPES = [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)]
 # Against the plain versions that walk as the kernels do (the tiled flash
 # walk with P rounded to bf16, the split-K decode from the kernel's plan),
@@ -181,6 +185,21 @@ def test_cuda_kernel_at_the_paths_shapes(cuda, b, C, npages, pairing):
     plan = ops.kernel_plan(*args[:3], args[5])
     assert plan["route"] == ("split" if C == 1 else "tensor_cores")
     _check_k1(args, pairing, torch.bfloat16, 1e-2)
+
+
+# (hq, hkv): llama4-scout's heads (g = 5) and starcoder2-7b's (g = 9), whose
+# M tiles hold a chunk position's heads across a tile boundary, at d 128
+ODD_GROUPS = [(40, 8), (36, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 32])
+@pytest.mark.parametrize("hq,hkv", ODD_GROUPS)
+def test_cuda_kernel_at_odd_gqa_groups(cuda, hq, hkv, C):
+    args = [torch.from_numpy(x).to(cuda) for x in
+            mixed_case(4, C, hq, hkv, 128, 128, 16, 8, seed=hq + C)]
+    args[:3] = [x.to(torch.bfloat16) for x in args[:3]]
+    _check_k1(args, "g_major", torch.bfloat16, 1e-2)
 
 
 @pytest.mark.gpu
@@ -270,6 +289,27 @@ def test_flash_kernel_matches_plain(cuda, shape, pairing, dtype, tol):
         p_dtype=dtype if dtype == torch.bfloat16 else None)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    atol, rtol = TIGHT["K3"][dtype]
+    torch.testing.assert_close(got.float(), tiled, atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("sq,skv", [(1, 150), (5, 150), (70, 150),
+                                    (1, 1500), (64, 1500)])
+def test_flash_kernel_cross_attention(cuda, sq, skv, dtype, tol):
+    """K3 not causal with sq != skv: queries against an encoder's keys
+    (whisper-tiny's heads), at a decode step (sq = 1) and over a text;
+    skv 1500 is whisper-tiny's encoder length."""
+    q, k, v = (torch.from_numpy(x).to(cuda).to(dtype)
+               for x in dense_case(2, sq, skv, 6, 6, 64, 64, seed=sq))
+    got = fa.flash_attention(q, k, v, causal=False)
+    want = fa_ref.attention_ref(q, k, v, causal=False)
+    tiled = fa_ref.attention_tiled_ref(
+        q.float(), k.float(), v.float(), causal=False,
+        p_dtype=dtype if dtype == torch.bfloat16 else None)
+    torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     atol, rtol = TIGHT["K3"][dtype]
     torch.testing.assert_close(got.float(), tiled, atol=atol, rtol=rtol)

@@ -181,6 +181,30 @@ def test_main_dense_engine(capsys):
     assert "megastep:" not in out
 
 
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "starcoder2-7b",
+                                  "llava-next-mistral-7b"])
+def test_main_paged_serves_every_gqa_family(arch, capsys):
+    """MoE, a plain GELU MLP at g = 2, and the VLM's text path through the
+    megastep."""
+    rc = serve.main(["--arch", arch, "--smoke", "--paged"] + PORT)
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert len(_served(out)) == 9
+    disp, steps = _dispatches(out)
+    assert disp == steps > 0
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+@pytest.mark.parametrize("arch,why", [("deepseek-v2-lite-16b", "MLA"),
+                                      ("whisper-tiny", "encoder-decoder")])
+def test_main_refuses_mla_and_encoder_decoder(arch, why, paged):
+    """Neither engine serves these families, as in the reference (its
+    engines assert the family, or fail at MLA's first decode step)."""
+    with pytest.raises(NotImplementedError, match=why):
+        serve.main(["--arch", arch, "--smoke"] + PORT
+                   + (["--paged"] if paged else []))
+
+
 # -------------------------------------- build_backend against the reference
 
 def _args(paged: bool, device=None) -> argparse.Namespace:
