@@ -54,6 +54,20 @@ Phases, each printing one JSON line (several for the kernel cases):
               Times the kernel, the plain version and one PyTorch library
               call (SDPA; none computes K5), beside the least time the card
               could take.
+              The gradients, at the training path's shapes: K3's
+              (FlashAttentionFn: the kernel with each row's log-sum-exp,
+              then the FlashAttention-2 backward in torch ops) at gemma-2b's
+              (b=8, sq=128; bf16 and f32), the MLA's (d=192, dv=128) and
+              whisper-tiny's encoder (sq=skv=1500, not causal); K5's
+              (SSDFn: the kernel, then autograd of the plain scan
+              recomputed) at mamba2-370m's (b=8, s=128), bf16 and f32.
+              At each of these shapes the kernel's forward output against
+              the plain version and its walk, as above; dq/dk/dv (and the
+              SSD inputs' gradients, which check SSDFn's wiring: its
+              backward recomputes the plain scan) against autograd of the
+              plain versions within 2e-2 (bf16) or 1e-4 (f32) of the
+              plain gradient's largest magnitude, K3's lse against the
+              plain one; each backward's device ms beside its forward's.
 4. main     — full-width gemma-2b (depth 18, random weights from --seed) in
               bf16 served through AgentRM -> PagedEngineBackend ->
               PagedInferenceEngine -> mixed_step_paged (K1): several agents,
@@ -128,6 +142,17 @@ Phases, each printing one JSON line (several for the kernel cases):
               the text), ``init_cross_cache`` + 32 greedy ``decode_step``s
               (K4 self, K3 across at sq 1), a profiled decode step; then
               f32 forward against decode, within 2e-3.
+16. train   — ``repro_torch.launch.train.main(argv)`` in this process:
+              gemma-2b at full width and depth (bf16 compute, f32 master
+              params and AdamW moments, remat on), 4 steps of 8 x 128, no
+              checkpoint: each step's loss, grad norm, ms and peak memory;
+              losses finite, step 0's ce under log(V) + 2, K3 launched
+              2 x 18 x 4 times (forward and remat recompute). mamba2-370m
+              at full width and depth: 6 steps straight, then --fail-at 2
+              --save-every 3 (exit 42) and --resume to 6, final checkpoints
+              equal bit for bit, K5 launched 2 x 48 a step. Then at depth
+              2, one gradient each: wq/wk/wv and the Mamba block's in_proj
+              get a finite non-zero gradient in every layer.
 
 Every kernel's launch count is set to 0 just before a path is driven and
 read just after; launches made to compare a kernel with its plain version
@@ -141,6 +166,8 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
+import os
 import re
 import subprocess
 import sys
@@ -162,7 +189,8 @@ PREFILL_TOL = 1e-3
 # with P rounded to bf16 on the tensor cores; the split-K decodes from the
 # kernel's plan), in float32 out: a bf16 output is at most half a bf16 ulp
 # (2^-8 relative) from it, K1's and K3's also moved by a rare other
-# rounding of P
+# rounding of P (where a check passes it, plus one such rounding's most
+# as _walk_check's slack: ``attention_tiled_ref(flip_slack=True)``)
 WALK_TOL = {("K1", "bfloat16"): (2e-3, 4e-3), ("K1", "float32"): (1e-5, 1e-5),
             ("K2", "bfloat16"): (1e-4, 4e-3), ("K2", "float32"): (1e-5, 1e-5),
             ("K3", "bfloat16"): (2e-3, 4e-3), ("K3", "float32"): (1e-5, 1e-5),
@@ -689,6 +717,219 @@ def ssd_cases(torch, flush):
                            torch.zeros_like(wst).flatten()])
         rows.append(_walk_check(torch, "K5", row, out, torch.cat(
             [wy.flatten(), wst.flatten()]), slack))
+    return rows
+
+
+# ------------------------------------------------------- the gradients
+
+GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}   # max|err| <= tol max|ref|
+LSE_TOL = {"bfloat16": 1e-5, "float32": 1e-5}    # the same, K3's lse
+
+
+def _grad_check(name: str, got, want, tol: float) -> float:
+    """Each gradient against the plain version's, max |err| within ``tol``
+    times the plain gradient's largest magnitude; returns the worst ratio
+    of the two."""
+    import torch
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        ref = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        if not (err <= tol * ref) or not torch.isfinite(g.float()).all():
+            raise AssertionError(f"{name}: gradient {i} {err} from the "
+                                 f"plain version's, beyond {tol} x {ref}")
+        worst = max(worst, err / ref)
+    return worst
+
+
+def k3_grad_cases(torch, flush):
+    """K3's gradient (``FlashAttentionFn``: the kernel forward with each
+    row's log-sum-exp, the FlashAttention-2 backward in torch ops) at the
+    training path's shapes: gemma-2b's (b 8, sq 128, hq 8 over 1 kv head,
+    d 256; bf16 and f32), the MLA forward's (16 heads, d 192, dv 128) and
+    whisper-tiny's encoder (sq = skv = 1500, d 64, not causal). The
+    kernel's output at each shape (the lse build, and the Function's, equal
+    bit for bit) against ``attention_ref`` within TOL and against the walk
+    it runs within WALK_TOL plus, per element, one entry of P rounded the
+    other way (``attention_tiled_ref``'s flip slack: at b 8 the early
+    causal rows, whose few P entries are near 1, meet such a flip beyond
+    WALK_TOL's fixed part); dq, dk, dv against
+    autograd of the plain ``attention_ref``, within GRAD_TOL of its largest
+    magnitude; the lse against ``attention_lse_ref``. Times the forward
+    (the kernel, lse written), the backward, the plain backward and SDPA's
+    backward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import backward, ops, ref
+    rows = []
+    cases = [("gemma-2b", torch.bfloat16, 8, 128, 8, 1, 256, 256, 128, True,
+              "g_major"),
+             ("gemma-2b", torch.float32, 8, 128, 8, 1, 256, 256, 128, True,
+              "g_major"),
+             ("mla", torch.bfloat16, 8, 128, 16, 16, 192, 128, 128, True,
+              "kv_major"),
+             ("whisper-encoder", torch.bfloat16, 8, 1500, 6, 6, 64, 64, 1500,
+              False, "g_major")]
+    for n, (name, dtype, b, sq, hq, hkv, d, dv, skv, causal,
+            pairing) in enumerate(cases):
+        gen = torch.Generator(device="cuda").manual_seed(7000 + n)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+        q, k, v = rnd(b, sq, hq, d), rnd(b, skv, hkv, d), rnd(b, skv, hkv, dv)
+        dout = rnd(b, sq, hq, dv)
+        dname = _dname(dtype)
+        kw = dict(causal=causal, pairing=pairing)
+        scale = 1.0 / d ** 0.5
+        out, lse = ops.flash_attention_lse(q, k, v, **kw)
+        lse_want = ref.attention_lse_ref(q, k, v, **kw)
+        lse_err = (lse - lse_want).abs().max().item()
+        if not lse_err <= LSE_TOL[dname] * lse_want.abs().max().item():
+            raise AssertionError(f"K3 lse {name} {dname}: {lse_err}")
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        got_out = ops.flash_attention(*leaves, **kw)
+        if type(got_out.grad_fn).__name__ != "FlashAttentionFnBackward":
+            raise AssertionError(f"K3 {name}: output's grad_fn is "
+                                 f"{got_out.grad_fn}")
+        if not torch.equal(got_out.detach(), out):
+            raise AssertionError(f"K3 {name} {dname}: FlashAttentionFn's "
+                                 "output differs from the lse launch's")
+        out_err = _check(f"K3 {name} {dname} forward", out,
+                         ref.attention_ref(q, k, v, **kw), TOL[dname])
+        walk, slack = ref.attention_tiled_ref(
+            q.float(), k.float(), v.float(), **kw,
+            p_dtype=dtype if dtype == torch.bfloat16 else None,
+            flip_slack=True)
+        got = torch.autograd.grad(got_out, leaves, dout)
+        plain_in = [t.detach().requires_grad_() for t in (q, k, v)]
+        plain_out = ref.attention_ref(*plain_in, **kw)
+        want = torch.autograd.grad(plain_out, plain_in, dout,
+                                   retain_graph=True)
+        torch.cuda.synchronize()
+        err = _grad_check(f"K3 {name} {dname}", got, want, GRAD_TOL[dname])
+        g = hq // hkv
+        sdpa_in = [q.transpose(1, 2), _tile_heads(k, g), _tile_heads(v, g)]
+        sdpa_in = [t.detach().requires_grad_() for t in sdpa_in]
+        sdpa_out = F.scaled_dot_product_attention(*sdpa_in, is_causal=causal)
+        sdpa_dout = dout.transpose(1, 2)
+        fwd_ms, _ = time_ms(lambda: ops.flash_attention_lse(q, k, v, **kw),
+                            10, flush)
+        bwd_ms, bwd_host = time_ms(
+            lambda: backward.flash_attention_backward(
+                q, k, v, out, lse, dout, scale=scale, **kw), 10, flush)
+        plain_ms, _ = time_ms(lambda: torch.autograd.grad(
+            plain_out, plain_in, dout, retain_graph=True), 10, flush)
+        lib_ms, _ = time_ms(lambda: torch.autograd.grad(
+            sdpa_out, sdpa_in, sdpa_dout, retain_graph=True), 10, flush)
+        es = q.element_size()
+        nbytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                  + 2 * dout.numel()) * es + lse.numel() * 4
+        pairs = sq * (sq + 1) // 2 if causal else sq * skv
+        flops = b * pairs * hq * 2 * (3 * d + 2 * dv)
+        row = {"kernel": "K3", "gradient": True, "case": name, "b": b,
+               "sq": sq, "skv": skv, "hq": hq, "hkv": hkv, "d": d, "dv": dv,
+               "causal": causal, "pairing": pairing, "dtype": dname,
+               "forward_max_abs_err": out_err, "forward_tol": TOL[dname],
+               "max_err_over_max_ref": err, "tol": GRAD_TOL[dname],
+               "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL[dname],
+               "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+               "backward_host_ms": bwd_host, "plain_backward_ms": plain_ms,
+               "library_backward_ms": lib_ms,
+               **_bound(nbytes, flops, dname)}
+        _walk_check(torch, "K3", row, out, walk, slack)
+        emit({"phase": "kernel_grad_case", **row})
+        rows.append(row)
+    return rows
+
+
+def ssd_grad_cases(torch, flush):
+    """K5 through ``SSDFn`` (the kernel forward, the backward by autograd
+    of the plain chunked scan, recomputed) at mamba2-370m's training shape
+    (b 8, s 128: one chunk of 128; 32 heads of 64, d_state 128, an
+    initial state), bf16 and f32, x, B and C strided views of one conv
+    output as ``mamba_full`` hands them over. The kernel's y and final
+    state at this shape against ``ssd_chunked_ref`` within SSD_TOL and
+    against the walk it runs within WALK_TOL, as ``ssd_cases`` holds them.
+    The gradients of the conv output, dt, A and the initial state against
+    autograd of ``ssd_chunked_ref``, within GRAD_TOL: the backward
+    recomputes that plain version, so this checks SSDFn's wiring (which
+    input gets which gradient, through the strided views), not K5. Times
+    the forward (K5), the backward and the plain backward."""
+    from repro_torch.kernels.ssd import backward, ops, ref
+    rows = []
+    b, s, h, p, g, n = 8, 128, 32, 64, 1, 128
+    for k, dtype in enumerate((torch.bfloat16, torch.float32)):
+        gen = torch.Generator(device="cuda").manual_seed(7500 + k)
+        xbc0 = (torch.randn((b, s, h * p + 2 * g * n), generator=gen,
+                            device="cuda") * 0.5).to(dtype)
+        dt0 = torch.rand((b, s, h), generator=gen, device="cuda") * 0.1 \
+            + 1e-3
+        A0 = -torch.linspace(1.0, 16.0, h, device="cuda")
+        st0 = torch.randn((b, g, h // g, n, p), generator=gen,
+                          device="cuda") * 0.5
+        dy = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+        dst = torch.randn((b, g, h // g, n, p), generator=gen, device="cuda")
+        dname = _dname(dtype)
+
+        def split(xbc):
+            x, B, C = torch.split(xbc, [h * p, g * n, g * n], dim=-1)
+            return (x.unflatten(-1, (h, p)), B.unflatten(-1, (g, n)),
+                    C.unflatten(-1, (g, n)))
+
+        def grads(fn):
+            leaves = [t.detach().requires_grad_()
+                      for t in (xbc0, dt0, A0, st0)]
+            x, B, C = split(leaves[0])
+            y, state = fn(x, leaves[1], leaves[2], B, C, 256, leaves[3])
+            return ((y.detach(), state.detach()), y.grad_fn,
+                    torch.autograd.grad((y, state), leaves, (dy, dst)))
+
+        out, grad_fn, got = grads(ops.ssd)
+        if type(grad_fn).__name__ != "SSDFnBackward":
+            raise AssertionError(f"K5: output's grad_fn is {grad_fn}")
+        want_out, _, want = grads(ref.ssd_chunked_ref)
+        torch.cuda.synchronize()
+        out_err = _check(f"K5 {dname} forward", out, want_out,
+                         SSD_TOL[dname])
+        err = _grad_check(f"K5 {dname}", got, want, GRAD_TOL[dname])
+        x, B, C = split(xbc0)
+        wy, wst, y_diag = ref.ssd_chunked_tiled_ref(x, dt0, A0, B, C, 256,
+                                                    st0, diag=True)
+        walk = torch.cat([wy.flatten(), wst.flatten()])
+        slack = torch.cat([ref.ulp(y_diag, dtype).flatten(),
+                           torch.zeros_like(wst).flatten()])
+        fwd_ms, _ = time_ms(lambda: ops.ssd(x, dt0, A0, B, C, 256, st0), 10,
+                            flush)
+        bwd_ms, bwd_host = time_ms(lambda: backward.ssd_backward(
+            x, dt0, A0, B, C, 256, st0, dy, dst), 10, flush)
+        plain_in = [t.detach().requires_grad_() for t in (xbc0, dt0, A0, st0)]
+        px, pB, pC = split(plain_in[0])
+        pout = ref.ssd_chunked_ref(px, plain_in[1], plain_in[2], pB, pC, 256,
+                                   plain_in[3])
+        plain_ms, _ = time_ms(lambda: torch.autograd.grad(
+            pout, plain_in, (dy, dst), retain_graph=True), 10, flush)
+        es = xbc0.element_size()
+        fwd = _ssd_bound(b, s, h, p, g, n, s, es, True, dname)
+        # the gradient: x, B, C, dt, A and the initial state read, and a
+        # gradient of each written; dy and dstate read; the products of
+        # the forward's autodiff, two for each of its own
+        ins = (b * s * h * p + 2 * b * s * g * n) * es \
+            + (b * s * h + h + b * h * n * p) * 4
+        bound = _bound(2 * ins + b * s * h * p * es + b * h * n * p * 4,
+                       2 * fwd["flops"], dname)
+        row = {"kernel": "K5", "gradient": True, "case": "mamba2-370m",
+               "b": b, "s": s, "h": h, "p": p, "g": g, "n": n, "L": s,
+               "initial_state": True, "dtype": dname,
+               "forward_max_abs_err": out_err,
+               "forward_tol": SSD_TOL[dname],
+               "max_err_over_max_ref": err, "tol": GRAD_TOL[dname],
+               "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+               "backward_host_ms": bwd_host, "plain_backward_ms": plain_ms,
+               "library_backward_ms": None, **bound}
+        _walk_check(torch, "K5", row, torch.cat(
+            [out[0].float().flatten(), out[1].flatten()]), walk, slack)
+        emit({"phase": "kernel_grad_case", **row})
+        rows.append(row)
     return rows
 
 
@@ -2148,6 +2389,250 @@ def encdec_phase(torch, seed: int, b: int = 2, s: int = 64,
 
 # ----------------------------------------------------------------- run
 
+# --------------------------------------------------------------- train
+
+TRAIN_DIR = ROOT / "build" / "train"      # the resume runs' checkpoints
+
+
+def _train_cli(torch, name: str, argv: list) -> dict:
+    """``repro_torch.launch.train.main(argv)`` in this process; every step's
+    metrics (loss, ce, grad_norm, host seconds) with the card's peak
+    allocated memory so far."""
+    from repro_torch.launch import train
+    steps = []
+
+    def on_step(m):
+        steps.append({**{k: v for k, v in m.items() if k != "seconds"},
+                      "ms": m["seconds"] * 1e3,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    torch.cuda.reset_peak_memory_stats()
+    rc = train.main(argv + ["--device", "cuda", "--log-every", "1"],
+                    on_step=on_step)
+    for m in steps:
+        if not all(math.isfinite(m[k]) for k in ("loss", "ce", "grad_norm")):
+            raise AssertionError(f"train {name}: step {m['step']} not "
+                                 f"finite: {m}")
+    return {"rc": rc, "steps": steps}
+
+
+def _train_summary(run: dict) -> dict:
+    """A CLI run's exit code and per-step losses, grad norms and ms, and
+    its peak memory."""
+    steps = run["steps"]
+    return {"rc": run["rc"], "first_step": steps[0]["step"],
+            **{k: [m[k] for m in steps] for k in ("loss", "grad_norm",
+                                                 "ms")},
+            "peak_gb": max(m["peak_gb"] for m in steps)}
+
+
+def _train_breakdown(torch, arch: str, seed: int, b: int = 8,
+                     s: int = 128, reps: int = 3) -> dict:
+    """Where a train step's time goes, at full width and depth, as the CLI
+    runs it (deterministic algorithms): host ms (median of ``reps``, each
+    ending in a synchronize) of the loss's forward alone (its graph
+    built), of forward + backward (``value_and_grad``) and of the whole
+    step (+ clip and AdamW); the backward's share of the step; then one
+    step under torch.profiler: device busy, idle share, K3/K5 device ms,
+    the top kernels."""
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.train_step import (make_train_step,
+                                                 value_and_grad)
+    from repro_torch.tree import flatten, unflatten
+    cfg = get_config(arch)
+    model = build(cfg)
+    params = model.init_train_params(seed=seed, device="cuda")
+    state = opt.init(params, opt.AdamWConfig())
+    batch = SyntheticLM(cfg, b, s, seed=seed, device="cuda").batch_at(0)
+    step = make_train_step(cfg)
+    grad_fn = value_and_grad(model.loss)
+
+    def forward():
+        flat, spec = flatten(params)
+        live = [p.detach().requires_grad_() for p in flat]
+        return model.loss(unflatten(spec, live), batch)[0]
+
+    def timed(fn) -> float:
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+            del out
+        return statistics.median(ts)
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        step(params, state, batch)                  # warm
+        fwd = timed(forward)
+        fwd_bwd = timed(lambda: grad_fn(params, batch))
+        full = timed(lambda: step(params, state, batch))
+        profile = _profile_calls(torch, lambda: step(params, state, batch),
+                                 n=1)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    del params, state
+    return {"arch": arch, "b": b, "s": s, "forward_ms": fwd,
+            "forward_backward_ms": fwd_bwd, "step_ms": full,
+            "backward_ms": fwd_bwd - fwd, "optimizer_ms": full - fwd_bwd,
+            "backward_share": (fwd_bwd - fwd) / full, "profile": profile}
+
+
+def _grads_reach(torch, arch: str, leaf: tuple, seed: int) -> dict:
+    """At full width, depth cut to 2, bf16: one ``value_and_grad`` of the
+    loss on the card. The attention (K3) or SSD (K5) output must carry its
+    gradient function, and every layer's slice of ``leaf`` (wq/wk/wv, the
+    Mamba block's in_proj: what sits before the kernel) a finite,
+    non-zero gradient."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import backward as fa_bwd
+    from repro_torch.kernels.ssd import backward as ssd_bwd
+    from repro_torch.models import build
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.train_step import value_and_grad
+    cfg = get_config(arch).replace(n_layers=2)
+    model = build(cfg)
+    params = model.init_train_params(seed=seed, device="cuda")
+    batch = SyntheticLM(cfg, 2, 128, seed=seed, device="cuda").batch_at(0)
+    reset_counts()
+    calls = (fa_bwd.flash_attention_backward.calls,
+             ssd_bwd.ssd_backward.calls)
+    _, grads = value_and_grad(model.loss)(params, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    calls = (fa_bwd.flash_attention_backward.calls - calls[0],
+             ssd_bwd.ssd_backward.calls - calls[1])
+    kernel = "K5" if cfg.family == "ssm" else "K3"
+    # each layer's kernel runs in the forward and again in the remat
+    _expect(f"train grads {arch}", counts, {kernel: 2 * cfg.n_layers})
+    if calls != ((0, cfg.n_layers) if kernel == "K5"
+                 else (cfg.n_layers, 0)):
+        raise AssertionError(f"train grads {arch}: backward calls {calls}")
+    norms = {}
+    for path in leaf:
+        g = grads["layers"]
+        for key in path:
+            g = g[key]
+        per_layer = [torch.linalg.vector_norm(x.float()).item() for x in g]
+        if not all(math.isfinite(x) and x > 0 for x in per_layer):
+            raise AssertionError(f"train grads {arch}: {'/'.join(path)} "
+                                 f"per layer {per_layer}")
+        norms["/".join(path)] = per_layer
+    return {"arch": arch, "reduced": "n_layers -> 2", "b": 2, "s": 128,
+            "launches": counts, "backward_calls": list(calls),
+            "grad_norm_per_layer": norms}
+
+
+def _ckpt_leaves(path: Path) -> dict:
+    import numpy as np
+    with np.load(path / "proc0.npz") as data:
+        return {k: data[k] for k in data.files}
+
+
+def train_phase(torch, seed: int) -> dict:
+    """The training path on the card (``repro_torch.launch.train``, in
+    this process). gemma-2b at full width and depth (18 layers, 2.51 B
+    params; bf16 compute, f32 master params and AdamW moments, remat on):
+    4 steps of batch 8 x 128, no checkpoint (one would be ~30 GB); every
+    loss and grad norm finite, step 0's ce under log(V) + 2, K3 launched
+    2 x 18 x 4 times (forward and remat recompute). mamba2-370m at full
+    width and depth (48 layers): 6 steps straight, then ``--fail-at 2
+    --save-every 3`` (exit 42) and ``--resume`` to 6: the final
+    checkpoints equal bit for bit, K5 launched 2 x 48 a step. Then at
+    full width, depth 2, the gradients reach what sits before each
+    kernel."""
+    import shutil
+    from repro_torch.configs import get_config
+
+    out = {}
+    cfg = get_config("gemma-2b")
+    argv = ["--arch", "gemma-2b", "--steps", "4", "--batch", "8", "--seq",
+            "128", "--seed", str(seed)]
+    reset_counts()
+    run = _train_cli(torch, "gemma-2b", argv)
+    counts = read_counts()
+    if run["rc"] != 0:
+        raise AssertionError(f"train gemma-2b: exit {run['rc']}")
+    _expect("train gemma-2b", counts, {"K3": 2 * cfg.n_layers * 4})
+    ce0 = run["steps"][0]["ce"]
+    if not ce0 < math.log(cfg.vocab_size) + 2.0:
+        raise AssertionError(f"train gemma-2b: step 0 ce {ce0} not under "
+                             f"log(V) + 2")
+    emit({"phase": "train_run", "arch": "gemma-2b", "launches": counts,
+          **run})
+    out["gemma-2b"] = {"argv": argv, "n_layers": cfg.n_layers,
+                       "remat": cfg.remat, "launches": counts,
+                       "log_v_plus_2": math.log(cfg.vocab_size) + 2.0,
+                       **_train_summary(run)}
+    _free()
+    out["gemma-2b"]["breakdown"] = _train_breakdown(torch, "gemma-2b", seed)
+    emit({"phase": "train_breakdown", **out["gemma-2b"]["breakdown"]})
+    _free()
+
+    cfg = get_config("mamba2-370m")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    base = ["--arch", "mamba2-370m", "--batch", "8", "--seq", "128",
+            "--seed", str(seed), "--steps", "6"]
+    per_step = 2 * cfg.n_layers
+    runs = {}
+    for name, extra, rc, n_steps in (
+            ("straight", ["--ckpt-dir", str(TRAIN_DIR / "straight"),
+                          "--save-every", "100"], 0, 6),
+            ("fail", ["--ckpt-dir", str(TRAIN_DIR / "resumed"),
+                      "--save-every", "3", "--fail-at", "2"], 42, 3),
+            ("resume", ["--ckpt-dir", str(TRAIN_DIR / "resumed"),
+                        "--save-every", "3", "--resume"], 0, 3)):
+        reset_counts()
+        run = _train_cli(torch, f"mamba2-370m {name}", base + extra)
+        counts = read_counts()
+        if run["rc"] != rc:
+            raise AssertionError(f"train mamba2-370m {name}: exit "
+                                 f"{run['rc']}, expected {rc}")
+        if len(run["steps"]) != n_steps:
+            raise AssertionError(f"train mamba2-370m {name}: "
+                                 f"{len(run['steps'])} steps")
+        _expect(f"train mamba2-370m {name}", counts,
+                {"K5": per_step * n_steps})
+        emit({"phase": "train_run", "arch": "mamba2-370m", "run": name,
+              "launches": counts, **run})
+        runs[name] = {"launches": counts, **_train_summary(run)}
+        _free()
+    final = "step_00000006"
+    a = _ckpt_leaves(TRAIN_DIR / "straight" / final)
+    b = _ckpt_leaves(TRAIN_DIR / "resumed" / final)
+    ckpt_bytes = sum(x.nbytes for x in a.values())
+    if a.keys() != b.keys() or not all(
+            a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+            and a[k].tobytes() == b[k].tobytes() for k in a):
+        raise AssertionError("train mamba2-370m: the resumed run's final "
+                             "checkpoint differs from the straight run's")
+    del a, b
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    out["mamba2-370m"] = {"n_layers": cfg.n_layers, "remat": cfg.remat,
+                          "runs": runs, "resume_bitwise_equal": True,
+                          "checkpoint_bytes": ckpt_bytes}
+    out["grads_reach"] = [
+        _grads_reach(torch, "gemma-2b", (("attn", "wq"), ("attn", "wk"),
+                                         ("attn", "wv")), seed),
+        _grads_reach(torch, "mamba2-370m", (("mamba", "in_proj"),), seed)]
+    _free()
+    launches = {}
+    for c in ([out["gemma-2b"]["launches"]]
+              + [r["launches"] for r in runs.values()]):
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+    # the launches of the CLI runs; the depth-2 gradient checks are not
+    # the path
+    return {"launches": launches, **out}
+
+
 def _kernel_name(mangled: str) -> str:
     """name<template args> of a mangled kernel: the length-prefixed
     identifier ending in _kernel (a namespace hash may hold digits just
@@ -2202,6 +2687,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    # the train phase's bitwise resume runs deterministic cuBLAS, whose
+    # workspace is fixed when the first handle is made
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2244,12 +2732,15 @@ def main() -> int:
     cases = {"K1": k1_cases(torch, flush), "K2": k2_cases(torch, flush),
              "K3": k3_cases(torch, flush), "K4": k4_cases(torch, flush),
              "K5": ssd_cases(torch, flush)}
+    grads = {"K3": k3_grad_cases(torch, flush),
+             "K5": ssd_grad_cases(torch, flush)}
     # K1's headline is the widest bucket of the main path, C = 256
     cases["K1"].sort(key=lambda r: (r["dtype"] != "bfloat16", -r["C"]))
     # K3's the dense engine's longest prompt, sq = 96
     cases["K3"].sort(key=lambda r: (r["dtype"] != "bfloat16",
                                     r["sq"] != 96, r["hkv"] != 1))
     emit({"phase": "kernels", "cases": sum(map(len, cases.values())),
+          "gradient_cases": sum(map(len, grads.values())),
           "all_within_tol": True, "all_within_walk_tol": True,
           "bitwise_twin": True, "bitwise_repeat": True,
           "k2_equals_k1_at_c1": True})
@@ -2303,11 +2794,14 @@ def main() -> int:
     done("starcoder2", starcoder2)
     encdec = encdec_phase(torch, args.seed)
     done("encdec", encdec)
+    _free()
+    train = train_phase(torch, args.seed)
+    done("train", train)
 
     launches = {name: sum(p["launches"][name]
                           for p in (main, legacy, dense, serve, lockstep,
                                     ssm, hybrid, moe, mla, vlm, starcoder2,
-                                    encdec))
+                                    encdec, train))
                 for name in cases}
     src = "src/repro_torch/kernels/"
     ref = "src/repro/kernels/"
@@ -2326,6 +2820,12 @@ def main() -> int:
                      ref + "decode_attention/kernel.py:59"),
         kernel_entry("ssd", cases["K5"], launches["K5"],
                      src + "ssd/csrc/ssd.cu", ref + "ssd/kernel.py:75")]
+    # the gradient's headline: the training path's bf16 shape
+    for entry, rows in ((kernels[2], grads["K3"]),
+                        (kernels[4], grads["K5"])):
+        entry.update(train_forward_ms=rows[0]["forward_ms"],
+                     train_backward_ms=rows[0]["backward_ms"],
+                     train_backward_bound_ms=rows[0]["bound_ms"])
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -97,13 +97,15 @@ __device__ __forceinline__ void stage_tile(T* k_dst, T* v_dst, const T* kp,
 // TILE rows exist; the rest of the buffer keeps stale data, which is safe
 // because those keys lie past kv_len. smem holds two buffers of
 // TILE * (d + dv) elements. The denominator is floored at 1e-30, so a row
-// that sees no key writes zeros.
+// that sees no key writes zeros. Where ``lse`` is given, the row's
+// log-sum-exp of its scaled scores, m + log(l), goes there (a gradient's
+// softmax normaliser).
 template <typename T, int TILE, typename TileFn>
 __device__ __forceinline__ void attend(const T* qrow, T* orow, bool active,
                                        int qpos, int kv_len, int n_tiles,
                                        int k_stride, int v_stride, int d,
                                        int dv, float scale, TileFn tile,
-                                       T* smem) {
+                                       T* smem, float* lse = nullptr) {
   const int lane = threadIdx.x & 31;
   const int buf_elems = TILE * (d + dv);
   float qr[kMaxPerLane];
@@ -190,6 +192,7 @@ __device__ __forceinline__ void attend(const T* qrow, T* orow, bool active,
       const int e = lane + 32 * u;
       if (e < dv) orow[e] = from_float<T>(acc[u] / denom);
     }
+    if (lse != nullptr && lane == 0) *lse = m + logf(denom);
   }
 }
 

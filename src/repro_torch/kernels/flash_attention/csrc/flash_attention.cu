@@ -7,7 +7,11 @@
 // Causal, query i sees keys k <= i (positions from 0 on both sides);
 // otherwise every key. Float32 softmax from bf16 or f32 inputs, output in
 // q's dtype, denominator floored at 1e-30. Any sq and skv (the Pallas
-// wrapper asserted sq % blk_q == 0 instead).
+// wrapper asserted sq % blk_q == 0 instead). Where the caller passes an
+// ``lse`` buffer (b, hq, sq) float32, each row's log-sum-exp of its scaled
+// scores (natural log) goes there too: the backward
+// (../backward.py) rebuilds P = exp(scale q.k - lse) from it instead of
+// recomputing the softmax's normaliser. The TPU kernel has no backward.
 //
 // bf16 (flash_tc_kernel), a FlashAttention-2 forward on the tensor cores.
 // What bounds it on an H100 is the bytes of q, K, V and the output against
@@ -56,9 +60,9 @@ constexpr int kTile = 16;
 template <typename T>
 __global__ void __launch_bounds__(attn::kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int sq, int skv,
-             int hq, int hkv, int d, int dv, float scale, int causal,
-             int g_major) {
+             const T* __restrict__ v, T* __restrict__ out,
+             float* __restrict__ lse, int sq, int skv, int hq, int hkv,
+             int d, int dv, float scale, int causal, int g_major) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.z;
   const int kvh = blockIdx.y;
@@ -82,7 +86,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   attn::attend<T, kTile>(q + row * d, out + row * dv, r < rows,
                          causal ? i : skv - 1, skv,
                          (kv_hi + kTile - 1) / kTile, hkv * d, hkv * dv, d,
-                         dv, scale, tile, reinterpret_cast<T*>(smem_raw));
+                         dv, scale, tile, reinterpret_cast<T*>(smem_raw),
+                         lse ? lse + ((size_t)b * hq + h) * sq + i : nullptr);
 }
 
 // --------------------------------------------------------------- bf16
@@ -108,9 +113,9 @@ struct Tc {
 template <int C, int DK, int DV>
 __global__ void __launch_bounds__(kTcThreads)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ out, int sq,
-                int skv, int hq, int hkv, int d, int dv, float scale_log2,
-                int causal, int g_major) {
+                const bf16* __restrict__ v, bf16* __restrict__ out,
+                float* __restrict__ lse, int sq, int skv, int hq, int hkv,
+                int d, int dv, float scale_log2, int causal, int g_major) {
   using Cfg = Tc<C>;
   constexpr int kN = Cfg::kN;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -337,7 +342,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  // normalise, stage O as bf16 over Q's rows, then write whole rows out
+  // normalise, stage O as bf16 over Q's rows, then write whole rows out;
+  // the log-sum-exp, where asked, in natural-log units of scale q.k
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -345,6 +351,12 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = 1.f / fmaxf(l, 1e-30f);
+    const int R = R0 + 8 * r;
+    if (lse != nullptr && tq == 0 && R < rows) {
+      const int i = R / g;
+      lse[((size_t)b * hq + head(R - i * g)) * sq + i] =
+          m_r[r] * 0.6931471805599453f + logf(fmaxf(l, 1e-30f));
+    }
   }
   bf16* orow = sQ + (warp * 16 + gq) * qs + 2 * tq;
 #pragma unroll
@@ -373,8 +385,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int C, int DK = 0, int DV = 0>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
-                      int b, int sq, int skv, int hq, int hkv, int d, int dv,
-                      float scale, int causal, int g_major,
+                      float* lse, int b, int sq, int skv, int hq, int hkv,
+                      int d, int dv, float scale, int causal, int g_major,
                       cudaStream_t stream) {
   constexpr int kN = Tc<C>::kN;
   const int g = hq / hkv;
@@ -388,15 +400,15 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
   return hop::launch(flash_tc_kernel<C, DK, DV>, grid, kTcThreads, smem,
                      stream, static_cast<const bf16*>(q),
                      static_cast<const bf16*>(k),
-                     static_cast<const bf16*>(v), static_cast<bf16*>(out), sq,
-                     skv, hq, hkv, d, dv, scale * 1.4426950408889634f, causal,
-                     g_major);
+                     static_cast<const bf16*>(v), static_cast<bf16*>(out), lse,
+                     sq, skv, hq, hkv, d, dv, scale * 1.4426950408889634f,
+                     causal, g_major);
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       void* out, int b, int sq, int skv, int hq, int hkv,
-                       int d, int dv, float scale, int causal, int g_major,
-                       cudaStream_t stream) {
+                       void* out, float* lse, int b, int sq, int skv, int hq,
+                       int hkv, int d, int dv, float scale, int causal,
+                       int g_major, cudaStream_t stream) {
   const int g = hq / hkv;
   const dim3 grid((sq * g + attn::kWarps - 1) / attn::kWarps, hkv, b);
   const size_t smem = 2 * (size_t)kTile * (d + dv) * sizeof(float);
@@ -404,48 +416,50 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
                       static_cast<const float*>(q),
                       static_cast<const float*>(k),
                       static_cast<const float*>(v), static_cast<float*>(out),
-                      sq, skv, hq, hkv, d, dv, scale, causal, g_major);
+                      lse, sq, skv, hq, hkv, d, dv, scale, causal, g_major);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Sizes are checked by the caller:
 // hq % hkv == 0, d and dv <= 256 and rows of whole 16-byte chunks, q, k, v
-// and out 16-byte aligned, b, sq, skv >= 1. Returns a cudaError_t as int.
+// and out 16-byte aligned, b, sq, skv >= 1. lse: (b, hq, sq) float32, or
+// null where the caller does not need it. Returns a cudaError_t as int.
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
-                               const void* v, void* out, int b, int sq,
-                               int skv, int hq, int hkv, int d, int dv,
-                               float scale, int causal, int g_major,
+                               const void* v, void* out, void* lse_out,
+                               int b, int sq, int skv, int hq, int hkv, int d,
+                               int dv, float scale, int causal, int g_major,
                                void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   cudaError_t e;
   if (dtype == 0) {
-    e = launch_f32(q, k, v, out, b, sq, skv, hq, hkv, d, dv, scale, causal,
-                   g_major, st);
+    e = launch_f32(q, k, v, out, lse, b, sq, skv, hq, hkv, d, dv, scale,
+                   causal, g_major, st);
   } else if (dtype == 1) {
     const int d16 = (d + 15) & ~15;
     const int dv16 = (dv + 15) & ~15;
     const int c = std::max(d16, dv16);
     if (d16 == dv16 && d16 == 256) {         // gemma-2b
-      e = launch_tc<256, 256, 256>(q, k, v, out, b, sq, skv, hq, hkv, d, dv,
-                                   scale, causal, g_major, st);
+      e = launch_tc<256, 256, 256>(q, k, v, out, lse, b, sq, skv, hq, hkv, d,
+                                   dv, scale, causal, g_major, st);
     } else if (d16 == dv16 && d16 == 128) {  // chatglm3-6b, llama
-      e = launch_tc<128, 128, 128>(q, k, v, out, b, sq, skv, hq, hkv, d, dv,
-                                   scale, causal, g_major, st);
+      e = launch_tc<128, 128, 128>(q, k, v, out, lse, b, sq, skv, hq, hkv, d,
+                                   dv, scale, causal, g_major, st);
     } else if (d16 == dv16 && d16 == 112) {  // zamba2-7b
-      e = launch_tc<128, 112, 112>(q, k, v, out, b, sq, skv, hq, hkv, d, dv,
-                                   scale, causal, g_major, st);
+      e = launch_tc<128, 112, 112>(q, k, v, out, lse, b, sq, skv, hq, hkv, d,
+                                   dv, scale, causal, g_major, st);
     } else if (d16 == dv16 && d16 == 64) {
-      e = launch_tc<64, 64, 64>(q, k, v, out, b, sq, skv, hq, hkv, d, dv,
+      e = launch_tc<64, 64, 64>(q, k, v, out, lse, b, sq, skv, hq, hkv, d, dv,
                                 scale, causal, g_major, st);
     } else if (c <= 64) {
-      e = launch_tc<64>(q, k, v, out, b, sq, skv, hq, hkv, d, dv, scale,
+      e = launch_tc<64>(q, k, v, out, lse, b, sq, skv, hq, hkv, d, dv, scale,
                         causal, g_major, st);
     } else if (c <= 128) {
-      e = launch_tc<128>(q, k, v, out, b, sq, skv, hq, hkv, d, dv, scale,
+      e = launch_tc<128>(q, k, v, out, lse, b, sq, skv, hq, hkv, d, dv, scale,
                          causal, g_major, st);
     } else {
-      e = launch_tc<256>(q, k, v, out, b, sq, skv, hq, hkv, d, dv, scale,
+      e = launch_tc<256>(q, k, v, out, lse, b, sq, skv, hq, hkv, d, dv, scale,
                          causal, g_major, st);
     }
   } else {

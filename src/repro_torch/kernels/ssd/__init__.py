@@ -1,2 +1,3 @@
 """Mamba-2 SSD chunked scan (K5): the CUDA kernel (``csrc/``), its wrapper
-(``ops``) and the plain PyTorch versions (``ref``)."""
+with the gradient (``ops``), the backward by recompute (``backward``) and
+the plain PyTorch versions (``ref``)."""

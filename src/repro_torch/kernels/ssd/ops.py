@@ -1,11 +1,17 @@
-"""Wrapper for the Mamba-2 SSD chunked scan (K5).
+"""Wrapper for the Mamba-2 SSD chunked scan (K5), forward and gradient.
 
 ``ssd`` is what ``models.ssd.ssd_chunked`` calls in every Mamba-2 layer of
-``forward`` and ``prefill`` (the SSM family and the hybrid's backbone). On
-CUDA tensors it launches the hand-written kernels in ``csrc/ssd.cu`` (built
-with nvcc at first use) or raises; it never falls back. On CPU tensors it
-runs the plain version ``ref.ssd_chunked_ref``. Each call of the C entry
-adds one to ``ssd.launches`` (bf16: two kernels, float32: one).
+``forward``, ``prefill`` and ``loss`` (the SSM family and the hybrid's
+backbone). On CUDA tensors it launches the hand-written kernels in
+``csrc/ssd.cu`` (built with nvcc at first use) or raises; it never falls
+back. On CPU tensors it runs the plain version ``ref.ssd_chunked_ref``,
+which autograd differentiates. Each call of the C entry adds one to
+``ssd.launches`` (bf16: two kernels, float32: one).
+
+Where an input requires grad (training), the launch goes through
+``SSDFn``: its forward is the kernel, its backward ``backward.ssd_backward``
+(autograd of the plain chunked scan, recomputed; the TPU kernel has no
+backward, the reference trains through XLA's autodiff of ``ssd_chunked``).
 
 bf16 runs on the tensor cores in two kernels (the state walk beside C.B^T
 once per group, then the output), whose walk is
@@ -30,6 +36,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, launch
+from repro_torch.kernels.ssd.backward import ssd_backward
 from repro_torch.kernels.ssd.ref import TILE, chunk_len, ssd_chunked_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
@@ -177,10 +184,20 @@ def ssd(x, dt, A, B, C, chunk: int,
     (b, s, h) and A (h,) float32; initial_state (b, g, h/g, n, p) float32
     or None (zeros). Returns (y (b, s, h, p) in x's dtype, final state
     (b, g, h/g, n, p) float32). Raises ``ValueError`` unless
-    ``min(chunk, s)`` divides s. CUDA tensors launch the kernel, CPU
-    tensors take the plain version."""
+    ``min(chunk, s)`` divides s. CUDA tensors launch the kernel (through
+    ``SSDFn`` where an input requires grad), CPU tensors take the plain
+    version."""
     if x.device.type == "cpu":
         return ssd_chunked_ref(x, dt, A, B, C, chunk, initial_state)
+    inputs = (x, dt, A, B, C, initial_state)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in inputs):
+        return SSDFn.apply(x, dt, A, B, C, chunk, initial_state)
+    return _launch(x, dt, A, B, C, chunk, initial_state)
+
+
+def _launch(x, dt, A, B, C, chunk: int, initial_state):
+    """One call of the C entry: (y, final state)."""
     if x.device.type != "cuda":
         raise ValueError(f"no SSD scan for device {x.device}")
     if x.ndim != 4 or B.ndim != 4 or C.ndim != 4:
@@ -221,3 +238,25 @@ def ssd(x, dt, A, B, C, chunk: int,
 
 
 ssd.launches = 0
+
+
+class SSDFn(torch.autograd.Function):
+    """K5 with a gradient. forward: the kernel (CUDA tensors only);
+    backward: ``backward.ssd_backward``, the autograd of the plain chunked
+    scan recomputed from the saved inputs; the recompute's outputs are
+    discarded, so the values the model uses are always the kernel's.
+    Arguments as ``ssd``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk: int, initial_state):
+        y, state = _launch(x, dt, A, B, C, chunk, initial_state)
+        ctx.save_for_backward(x, dt, A, B, C, initial_state)
+        ctx.chunk = chunk
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, B, C, initial_state = ctx.saved_tensors
+        dx, ddt, dA, dB, dC, dinit = ssd_backward(
+            x, dt, A, B, C, ctx.chunk, initial_state, dy, dstate)
+        return dx, ddt, dA, dB, dC, None, dinit

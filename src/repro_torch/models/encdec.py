@@ -17,7 +17,11 @@ The decoder's position table holds ``MAX_DEC_POS`` positions.
 The reference has no encoder-decoder prefill and no paged members, and its
 engines refuse the family. Params are the prepared dict of
 ``repro_torch.weights`` (``enc_layers`` and ``layers`` as lists; ``lm_head``
-replaced by the f32 ``unembed``). Caches are updated in place.
+replaced by the f32 ``unembed``). Caches are updated in place. ``loss``
+takes the master tree (``Model.init_train_params``: float32, both stacks
+stacked) and a batch with ``frame_embeds``, and returns (ce, {"ce",
+"moe_aux", "moe_z"}), the last two zero; with ``cfg.remat`` each encoder
+and decoder layer runs under ``torch.utils.checkpoint``.
 """
 from __future__ import annotations
 
@@ -28,9 +32,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import _init, apply_mlp, init_mlp, rms_norm
-from repro_torch.models.transformer import _unembed
-from repro_torch.weights import prepare_params
+from repro_torch.models.layers import (_init, apply_mlp, cross_entropy_loss,
+                                       init_mlp, rms_norm)
+from repro_torch.models.transformer import _unembed, remat_wrap
+from repro_torch.weights import forward_params, prepare_params
 
 MAX_DEC_POS = 32768
 
@@ -64,21 +69,26 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
     ``weights.prepare_params`` does."""
     _check_supported(cfg)
     dev = resolve_device(device)
+    raw = _raw_params(cfg, generator, seed, dev,
+                      torch_dtype(cfg.compute_dtype))
+    return prepare_params(raw, cfg, dev)
+
+
+def _raw_params(cfg: ModelConfig, generator, seed: int, dev, dtype) -> Dict:
+    """Every leaf drawn in ``dtype``, both stacks as lists."""
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
-    ct = torch_dtype(cfg.compute_dtype)
-    kw = dict(generator=generator, device=dev, dtype=ct)
+    kw = dict(generator=generator, device=dev, dtype=dtype)
     d = cfg.d_model
-    raw = {"embed": _init((cfg.vocab_size, d), scale=0.02, **kw),
-           "dec_pos": _init((MAX_DEC_POS, d), scale=0.02, **kw),
-           "enc_pos": _init((cfg.enc_len, d), scale=0.02, **kw),
-           "enc_layers": [_enc_layer(cfg, kw)
-                          for _ in range(cfg.n_enc_layers)],
-           "enc_final_norm": torch.zeros((d,), device=dev, dtype=ct),
-           "layers": [_dec_layer(cfg, kw) for _ in range(cfg.n_layers)],
-           "final_norm": torch.zeros((d,), device=dev, dtype=ct),
-           "lm_head": _init((d, cfg.vocab_size), **kw)}
-    return prepare_params(raw, cfg, dev)
+    return {"embed": _init((cfg.vocab_size, d), scale=0.02, **kw),
+            "dec_pos": _init((MAX_DEC_POS, d), scale=0.02, **kw),
+            "enc_pos": _init((cfg.enc_len, d), scale=0.02, **kw),
+            "enc_layers": [_enc_layer(cfg, kw)
+                           for _ in range(cfg.n_enc_layers)],
+            "enc_final_norm": torch.zeros((d,), device=dev, dtype=dtype),
+            "layers": [_dec_layer(cfg, kw) for _ in range(cfg.n_layers)],
+            "final_norm": torch.zeros((d,), device=dev, dtype=dtype),
+            "lm_head": _init((d, cfg.vocab_size), **kw)}
 
 
 def _mlp(lp, x, cfg: ModelConfig):
@@ -91,12 +101,17 @@ def encode(params, frame_embeds, cfg: ModelConfig):
     shape, in the compute dtype."""
     x = frame_embeds.to(torch_dtype(cfg.compute_dtype))
     x = x + params["enc_pos"][: x.shape[1]].to(x.dtype)
+    layer = remat_wrap(lambda lp, h: _enc_layer_full(lp, h, cfg), cfg)
     for lp in params["enc_layers"]:
-        x = x + attn_mod.gqa_full(
-            lp["attn"], rms_norm(x, lp["attn_norm"], cfg.norm_eps), cfg,
-            causal=False)
-        x = x + _mlp(lp, x, cfg)
+        x = layer(lp, x)
     return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _enc_layer_full(lp, x, cfg: ModelConfig):
+    x = x + attn_mod.gqa_full(
+        lp["attn"], rms_norm(x, lp["attn_norm"], cfg.norm_eps), cfg,
+        causal=False)
+    return x + _mlp(lp, x, cfg)
 
 
 def _cross_kv(cp, enc, cfg: ModelConfig):
@@ -117,13 +132,29 @@ def forward(params, tokens, cfg: ModelConfig, *, frame_embeds):
     enc = encode(params, frame_embeds, cfg)
     s = tokens.shape[1]
     x = params["embed"][tokens.long()] + params["dec_pos"][:s]
+    layer = remat_wrap(lambda lp, h, e: _dec_layer_full(lp, h, e, cfg), cfg)
     for lp in params["layers"]:
-        x = x + attn_mod.gqa_full(
-            lp["attn"], rms_norm(x, lp["attn_norm"], cfg.norm_eps), cfg,
-            causal=True)
-        x = x + _cross(lp, x, _cross_kv(lp["cross"], enc, cfg), cfg)
-        x = x + _mlp(lp, x, cfg)
+        x = layer(lp, x, enc)
     return _unembed(params, rms_norm(x, params["final_norm"], cfg.norm_eps))
+
+
+def _dec_layer_full(lp, x, enc, cfg: ModelConfig):
+    x = x + attn_mod.gqa_full(
+        lp["attn"], rms_norm(x, lp["attn_norm"], cfg.norm_eps), cfg,
+        causal=True)
+    x = x + _cross(lp, x, _cross_kv(lp["cross"], enc, cfg), cfg)
+    return x + _mlp(lp, x, cfg)
+
+
+def loss(params, batch: Dict, cfg: ModelConfig):
+    """params: the master tree; batch: ``tokens``, ``labels`` (b, s) and
+    ``frame_embeds`` (b, enc_len, d). Returns (ce, {"ce", "moe_aux": 0,
+    "moe_z": 0})."""
+    logits = forward(forward_params(params, cfg), batch["tokens"], cfg,
+                     frame_embeds=batch["frame_embeds"])
+    ce = cross_entropy_loss(logits, batch["labels"])
+    zero = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce, {"moe_aux": zero, "moe_z": zero, "ce": ce}
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,

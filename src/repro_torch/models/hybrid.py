@@ -13,7 +13,11 @@ through each ring). The reference has no hybrid prefill: a hybrid is served
 through ``decode_step`` from position 0. Params are the prepared dict of
 ``repro_torch.weights``: ``groups`` a list of G lists of attn_every layer
 dicts, ``tail`` a list, ``shared`` one dict. Decode state is updated in
-place.
+place. ``loss`` takes the master tree (``Model.init_train_params``: float32,
+``groups`` stacked (G, E, ...), ``tail`` (T, ...)) and returns (ce,
+{"ce", "moe_aux", "moe_z"}), the last two zero, as the reference's; with
+``cfg.remat`` each shared-block application and each Mamba-2 layer runs
+under ``torch.utils.checkpoint``.
 """
 from __future__ import annotations
 
@@ -25,10 +29,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssd as ssd_mod
-from repro_torch.models.layers import _init, apply_mlp, init_mlp, rms_norm
+from repro_torch.models.layers import (_init, apply_mlp, cross_entropy_loss,
+                                       init_mlp, rms_norm)
 from repro_torch.models.transformer import (_embed, _mamba_decode,
-                                            _mamba_full, _unembed)
-from repro_torch.weights import prepare_params
+                                            _mamba_full, _unembed,
+                                            remat_wrap)
+from repro_torch.weights import forward_params, prepare_params
 
 
 def _check_supported(cfg: ModelConfig):
@@ -51,11 +57,17 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
     ``weights.prepare_params`` does."""
     _check_supported(cfg)
     dev = resolve_device(device)
+    raw = _raw_params(cfg, generator, seed, dev,
+                      torch_dtype(cfg.compute_dtype))
+    return prepare_params(raw, cfg, dev)
+
+
+def _raw_params(cfg: ModelConfig, generator, seed: int, dev, dtype) -> Dict:
+    """Every leaf drawn in ``dtype``; ``groups`` a list of lists."""
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
-    ct = torch_dtype(cfg.compute_dtype)
-    kw = dict(generator=generator, device=dev, dtype=ct)
-    zeros = dict(device=dev, dtype=ct)
+    kw = dict(generator=generator, device=dev, dtype=dtype)
+    zeros = dict(device=dev, dtype=dtype)
     g, e, tail = _layout(cfg)
 
     def mamba_one():
@@ -74,7 +86,7 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
     }
     if tail:
         raw["tail"] = [mamba_one() for _ in range(tail)]
-    return prepare_params(raw, cfg, dev)
+    return raw
 
 
 def _shared_block_full(sp, x, cfg: ModelConfig, window: int = 0):
@@ -92,13 +104,25 @@ def forward(params, tokens, cfg: ModelConfig):
     # full attention within the sequence: the window binds only beyond it
     win = 0 if x.shape[1] <= (cfg.attn_window or 1 << 62) \
         else cfg.attn_window
+    shared = remat_wrap(lambda sp, h: _shared_block_full(sp, h, cfg,
+                                                         window=win), cfg)
+    mamba = remat_wrap(lambda lp, h: _mamba_full(lp, h, cfg)[0], cfg)
     for gp in params["groups"]:
-        x = _shared_block_full(params["shared"], x, cfg, window=win)
+        x = shared(params["shared"], x)
         for lp in gp:
-            x, _ = _mamba_full(lp, x, cfg)
+            x = mamba(lp, x)
     for lp in params.get("tail", []):
-        x, _ = _mamba_full(lp, x, cfg)
+        x = mamba(lp, x)
     return _unembed(params, rms_norm(x, params["final_norm"], cfg.norm_eps))
+
+
+def loss(params, batch: Dict, cfg: ModelConfig):
+    """params: the master tree; batch: ``tokens``, ``labels`` (b, s).
+    Returns (ce, {"ce", "moe_aux": 0, "moe_z": 0})."""
+    logits = forward(forward_params(params, cfg), batch["tokens"], cfg)
+    ce = cross_entropy_loss(logits, batch["labels"])
+    zero = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce, {"moe_aux": zero, "moe_z": zero, "ce": ce}
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,

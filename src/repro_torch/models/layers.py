@@ -9,7 +9,9 @@ Plain functions on tensors, computing what ``repro.models.layers`` computes:
   * ``simple_attention`` is the masked reference attention, and
     ``attention`` the dispatch that sends full-sequence attention on the
     card to the flash kernel (K3);
-  * ``apply_mlp`` uses the tanh GELU, which is ``jax.nn.gelu``'s default.
+  * ``apply_mlp`` uses the tanh GELU, which is ``jax.nn.gelu``'s default;
+  * ``cross_entropy_loss`` is the training loss: log-sum-exp in float32,
+    then the label's logit picked out.
 """
 from __future__ import annotations
 
@@ -151,3 +153,18 @@ def init_mlp(d_model: int, d_ff: int, act: str, *, generator, device,
     return {"w_gate": _init((d_model, d_ff), **kw),
             "w_up": _init((d_model, d_ff), **kw),
             "w_down": _init((d_ff, d_model), **kw)}
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits (..., V), taken in float32; labels int (...); mask optional
+    {0, 1} (...). The mean negative log-likelihood (over the mask's ones
+    where given, at least one)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - ll
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -6,10 +6,14 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Dict, Optional
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import encdec, hybrid, transformer
+from repro_torch.weights import stack_layers
 
 
 @dataclass(frozen=True)
@@ -35,6 +39,11 @@ class Model:
     # (params, pools, toks, cache_lens, valids, page_tables, poison_mask)
     # -> (B,) int32 next ids; pools are written in place
     mixed_step_paged: Callable
+    # (master, batch) -> (total, {"ce", "moe_aux", "moe_z"}), 0-d f32
+    # tensors; master: the float32 tree in the reference's layout
+    loss: Callable
+    # (*, generator=None, seed=0, device="cuda") -> random master params
+    init_train_params: Callable
 
 
 def _lacks(cfg: ModelConfig, member: str, why: str) -> Callable:
@@ -45,12 +54,26 @@ def _lacks(cfg: ModelConfig, member: str, why: str) -> Callable:
     return refuse
 
 
+def _init_train_params(family, cfg: ModelConfig, *, generator: Optional[
+        torch.Generator] = None, seed: int = 0, device="cuda") -> Dict:
+    """Random master params for training: the draws of the family
+    module's ``init_params`` in ``cfg.param_dtype`` (float32), in the
+    reference's layout (layers stacked on a leading axis)."""
+    family._check_supported(cfg)
+    dev = resolve_device(device)
+    return stack_layers(family._raw_params(cfg, generator, seed, dev,
+                                           torch_dtype(cfg.param_dtype)))
+
+
 def build(cfg: ModelConfig) -> Model:
     paged = "the paged pools hold the GQA family's K/V alone"
     if cfg.is_encoder_decoder:
         encdec._check_supported(cfg)
         return Model(
             cfg=cfg,
+            loss=functools.partial(encdec.loss, cfg=cfg),
+            init_train_params=functools.partial(_init_train_params, encdec,
+                                                cfg),
             init_params=functools.partial(encdec.init_params, cfg),
             forward=functools.partial(encdec.forward, cfg=cfg),
             init_decode_state=functools.partial(encdec.init_decode_state,
@@ -66,6 +89,9 @@ def build(cfg: ModelConfig) -> Model:
         hybrid._check_supported(cfg)
         return Model(
             cfg=cfg,
+            loss=functools.partial(hybrid.loss, cfg=cfg),
+            init_train_params=functools.partial(_init_train_params, hybrid,
+                                                cfg),
             init_params=functools.partial(hybrid.init_params, cfg),
             forward=functools.partial(hybrid.forward, cfg=cfg),
             init_decode_state=functools.partial(hybrid.init_decode_state,
@@ -81,12 +107,16 @@ def build(cfg: ModelConfig) -> Model:
     def bind(fn):
         return functools.partial(fn, cfg=cfg)
 
+    train = dict(loss=bind(transformer.loss),
+                 init_train_params=functools.partial(
+                     _init_train_params, transformer, cfg))
+
     if cfg.family == "ssm" or cfg.mla is not None:
         paged = ("an SSM keeps no K/V for the paged pools"
                  if cfg.family == "ssm" else
                  "the reference's paged pools assert mla is None")
         return Model(
-            cfg=cfg,
+            cfg=cfg, **train,
             init_params=functools.partial(transformer.init_params, cfg),
             forward=bind(transformer.forward),
             init_decode_state=functools.partial(transformer.init_decode_state,
@@ -97,7 +127,7 @@ def build(cfg: ModelConfig) -> Model:
             prefill_chunk_paged=_lacks(cfg, "prefill_chunk_paged", paged),
             mixed_step_paged=_lacks(cfg, "mixed_step_paged", paged))
     return Model(
-        cfg=cfg,
+        cfg=cfg, **train,
         init_params=functools.partial(transformer.init_params, cfg),
         forward=bind(transformer.forward),
         init_decode_state=functools.partial(transformer.init_decode_state,

@@ -30,22 +30,34 @@ members are the GQA family's alone, as in the reference.
 Params are the prepared dict of ``repro_torch.weights`` (compute dtype,
 layers as a list). Caches and pools are device tensors updated in place,
 where the reference returns new donated buffers; the functions return only
-their logits or ids. The MoE aux and z losses are training metrics, and
-``forward`` returns logits alone.
+their logits or ids. ``forward`` returns logits alone.
+
+Training: ``loss(params, batch, cfg)`` takes the master tree
+(``Model.init_train_params``, or ``weights.train_params_from_jax``:
+float32, the reference's stacked layout), prepares it differentiably
+(``weights.forward_params``) and returns ``(total, {"ce", "moe_aux",
+"moe_z"})``: cross-entropy over the text positions plus the MoE aux and z
+losses summed over the layers, at the reference's weights 0.01 and 1e-3.
+With ``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` (its
+activations are recomputed in the backward, as the reference's
+``remat_wrap``; the "dots" policy recomputes the whole layer too).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssd as ssd_mod
-from repro_torch.models.layers import _init, apply_mlp, init_mlp, rms_norm
-from repro_torch.weights import prepare_params
+from repro_torch.models.layers import (_init, apply_mlp, cross_entropy_loss,
+                                       init_mlp, rms_norm)
+from repro_torch.weights import forward_params, prepare_params
 
 
 def _check_supported(cfg: ModelConfig):
@@ -90,11 +102,17 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
     ``weights.prepare_params`` does."""
     _check_supported(cfg)
     dev = resolve_device(device)
+    raw = _raw_params(cfg, generator, seed, dev,
+                      torch_dtype(cfg.compute_dtype))
+    return prepare_params(raw, cfg, dev)
+
+
+def _raw_params(cfg: ModelConfig, generator, seed: int, dev, dtype) -> Dict:
+    """Every leaf drawn in ``dtype``, per-layer params as lists."""
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
-    ct = torch_dtype(cfg.compute_dtype)
-    kw = dict(generator=generator, device=dev, dtype=ct)
-    zeros = dict(device=dev, dtype=ct)
+    kw = dict(generator=generator, device=dev, dtype=dtype)
+    zeros = dict(device=dev, dtype=dtype)
     raw = {"embed": _init((cfg.vocab_size, cfg.d_model), scale=0.02, **kw),
            "final_norm": torch.zeros((cfg.d_model,), **zeros)}
     if cfg.family == "ssm":
@@ -109,7 +127,7 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
                                         dense_ff=cfg.first_dense_d_ff)
     if not cfg.tie_embeddings:
         raw["lm_head"] = _init((cfg.d_model, cfg.vocab_size), **kw)
-    return prepare_params(raw, cfg, dev)
+    return raw
 
 
 def _init_layer(cfg: ModelConfig, kw: dict, dense_ff: int = 0) -> Dict:
@@ -167,25 +185,43 @@ def _unembed(params, h):
     return h.float() @ params["unembed"]
 
 
-def _mlp(lp, x, cfg: ModelConfig):
-    """The layer's MLP, or its routed MoE (aux losses dropped)."""
+def _mlp_aux(lp, x, cfg: ModelConfig):
+    """The layer's MLP, or its routed MoE: (out, aux loss, z-loss), the
+    losses float32 0-d tensors, None for a dense MLP."""
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     if "moe" in lp:
-        return moe_mod.apply_moe(lp["moe"], h, cfg)[0]
-    return apply_mlp(lp["mlp"], h, cfg.act)
+        return moe_mod.apply_moe(lp["moe"], h, cfg)
+    return apply_mlp(lp["mlp"], h, cfg.act), None, None
+
+
+def _mlp(lp, x, cfg: ModelConfig):
+    """The layer's MLP, or its routed MoE (aux losses dropped: decode)."""
+    return _mlp_aux(lp, x, cfg)[0]
+
+
+def remat_wrap(fn, cfg: ModelConfig):
+    """``fn`` under ``torch.utils.checkpoint`` where ``cfg.remat`` is set
+    and a gradient is being recorded (its saved activations are dropped
+    and recomputed in the backward), else ``fn`` itself."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False, preserve_rng_state=False)
 
 
 # ------------------------------------------------------------ full forward
 
 def _layer_full(x, lp, cfg: ModelConfig, return_kv=False):
-    """One layer over the sequence; with ``return_kv`` also its cache
-    entries: the rotated (k, v), or MLA's (c_kv, k_rope)."""
+    """One layer over the sequence: (x, (aux, z)), and with ``return_kv``
+    also its cache entries: the rotated (k, v), or MLA's (c_kv,
+    k_rope)."""
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     full = attn_mod.mla_full if cfg.mla is not None else attn_mod.gqa_full
     a, kv = (full(lp["attn"], h, cfg, return_kv=True) if return_kv
              else (full(lp["attn"], h, cfg), None))
     x = x + a
-    return x + _mlp(lp, x, cfg), kv
+    m, aux, z = _mlp_aux(lp, x, cfg)
+    return x + m, (aux, z), kv
 
 
 def _mamba_full(lp, x, cfg: ModelConfig):
@@ -203,21 +239,44 @@ def _stack(params):
         + params["layers"]
 
 
+def _forward(params, tokens, cfg: ModelConfig, patch_embeds=None):
+    """-> (logits (b, s_text, V) float32, MoE aux loss, z-loss), the two
+    summed over the layers; each layer under ``remat_wrap``."""
+    x = _assemble_input(params, tokens, cfg, patch_embeds)
+    aux = z = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        mamba = remat_wrap(lambda lp, h: _mamba_full(lp, h, cfg)[0], cfg)
+        for lp in params["layers"]:
+            x = mamba(lp, x)
+    else:
+        layer = remat_wrap(lambda lp, h: _layer_full(h, lp, cfg)[:2], cfg)
+        for lp in _stack(params):
+            x, (a, zz) = layer(lp, x)
+            if a is not None:
+                aux, z = aux + a, z + zz
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.family == "vlm":
+        x = x[:, cfg.n_image_tokens:]
+    return _unembed(params, x), aux, z
+
+
 def forward(params, tokens, cfg: ModelConfig, *, patch_embeds=None):
     """tokens: (b, s) int -> logits (b, s, V) float32, every text
     position. A VLM takes ``patch_embeds`` (b, n_image_tokens, d) ahead of
     the text. An SSM's s must be at most its chunk or a multiple of it."""
-    x = _assemble_input(params, tokens, cfg, patch_embeds)
-    if cfg.family == "ssm":
-        for lp in params["layers"]:
-            x, _ = _mamba_full(lp, x, cfg)
-    else:
-        for lp in _stack(params):
-            x, _ = _layer_full(x, lp, cfg)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.family == "vlm":
-        x = x[:, cfg.n_image_tokens:]
-    return _unembed(params, x)
+    return _forward(params, tokens, cfg, patch_embeds)[0]
+
+
+def loss(params, batch: Dict, cfg: ModelConfig):
+    """params: the master tree (float32, stacked layers); batch: ``tokens``
+    and ``labels`` (b, s_text) int, a VLM's ``patch_embeds``. Returns
+    (total, {"ce", "moe_aux", "moe_z"}), 0-d float32 tensors:
+    total = ce + 0.01 moe_aux + 1e-3 moe_z."""
+    logits, aux, z = _forward(forward_params(params, cfg), batch["tokens"],
+                              cfg, batch.get("patch_embeds"))
+    ce = cross_entropy_loss(logits, batch["labels"])
+    total = ce + 0.01 * aux + 1e-3 * z
+    return total, {"moe_aux": aux, "moe_z": z, "ce": ce}
 
 
 # ------------------------------------------------------------------ decode
@@ -293,7 +352,7 @@ def prefill(params, tokens, cfg: ModelConfig, *, state: Dict,
             state["ssm"][li] = ssm
     else:
         for li, lp in enumerate(_stack(params)):
-            x, kv = _layer_full(x, lp, cfg, return_kv=True)
+            x, _, kv = _layer_full(x, lp, cfg, return_kv=True)
             for cache, new in zip(_layer_caches(state, cfg, li), kv):
                 _fill(cache, new)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

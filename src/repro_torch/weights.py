@@ -1,5 +1,14 @@
 """Weight bridge: the reference's parameter pytree -> the port's params.
 
+Two forms of params. Serving takes the prepared dict (``prepare_params``,
+``params_from_jax``): compute dtype, layers as lists, ``unembed`` in place
+of ``lm_head``. Training keeps the master tree (``train_params_from_jax``,
+``stack_layers``): the reference's own layout, float32 leaves with the
+layers stacked on leading axes, which the optimizer moments and the
+checkpoint mirror leaf for leaf. ``forward_params`` turns a master tree
+into prepared params differentiably, so autograd carries every gradient
+back to the stacked leaves.
+
 ``params_from_jax`` takes the pytree of ``repro.models.transformer.
 init_params`` (or ``repro.models.hybrid.init_params``) with every leaf
 already converted to a numpy array (the caller does
@@ -26,7 +35,7 @@ def numpy_to_torch(arr) -> torch.Tensor:
     """A host numpy array as a CPU tensor. ``bfloat16`` arrays (from
     ml_dtypes) and ``uint16`` arrays are taken as bf16 bit patterns — the
     layout the port's own bf16 pool pages use on the host."""
-    arr = np.ascontiguousarray(arr)
+    arr = np.asarray(arr)         # a 0-d array stays 0-d; copies are C order
     if arr.dtype.name in ("bfloat16", "uint16"):
         bits = arr.view(np.uint16).view(np.int16)
         return torch.from_numpy(bits.copy()).view(torch.bfloat16)
@@ -86,21 +95,32 @@ def prepare_params(raw: Dict, cfg: ModelConfig, device) -> Dict:
     return out
 
 
-def _unstack(x, depth: int = 1):
-    """A pytree whose leaves share ``depth`` leading stacked axes (the
-    reference's scanned layers) as nested lists of per-layer pytrees."""
+STACKED = {"layers": 1, "enc_layers": 1, "groups": 2, "tail": 1}
+
+
+def _unbind(x, depth: int):
+    """Inverse of ``_stack`` as views: a pytree of stacked leaves -> nested
+    lists of per-layer pytrees. Each leaf is cut once by ``torch.unbind``,
+    so its gradient is gathered in one stack, not summed from one full-size
+    tensor per layer."""
     if depth == 0:
         return x
-    leaf = x
-    while isinstance(leaf, dict):
-        leaf = next(iter(leaf.values()))
+
+    def cut(t):
+        if isinstance(t, dict):
+            return {k: cut(v) for k, v in t.items()}
+        return torch.unbind(t, 0)
 
     def pick(t, i):
         if isinstance(t, dict):
             return {k: pick(v, i) for k, v in t.items()}
         return t[i]
 
-    return [_unstack(pick(x, i), depth - 1) for i in range(leaf.shape[0])]
+    parts = cut(x)
+    leaf = parts
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return [_unbind(pick(parts, i), depth - 1) for i in range(len(leaf))]
 
 
 def params_from_jax(np_tree: Dict, cfg: ModelConfig,
@@ -121,6 +141,66 @@ def params_from_jax(np_tree: Dict, cfg: ModelConfig,
             return {k: conv(v) for k, v in x.items()}
         return numpy_to_torch(x)
 
-    depth = {"layers": 1, "enc_layers": 1, "groups": 2, "tail": 1}
-    raw = {k: _unstack(conv(v), depth.get(k, 0)) for k, v in np_tree.items()}
+    raw = {k: _unbind(conv(v), STACKED.get(k, 0))
+           for k, v in np_tree.items()}
     return prepare_params(raw, cfg, device)
+
+
+def train_params_from_jax(np_tree: Dict, device="cuda") -> Dict:
+    """The reference's ``init_params`` pytree (numpy leaves) as a master
+    tree for training: the same nested dicts, each leaf a tensor of the
+    same dtype (the reference's ``param_dtype``, float32) on ``device``,
+    layers still stacked on their leading axes."""
+    device = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return numpy_to_torch(x).to(device)
+
+    return conv(np_tree)
+
+
+def _stack(x, depth: int):
+    """Nested lists (``depth`` deep) of per-layer pytrees -> one pytree
+    whose leaves are stacked on ``depth`` leading axes."""
+    if depth == 0:
+        return x
+    items = [_stack(v, depth - 1) for v in x]
+
+    def join(ts):
+        if isinstance(ts[0], dict):
+            return {k: join([t[k] for t in ts]) for k in ts[0]}
+        return torch.stack(ts)
+
+    return join(items)
+
+
+def stack_layers(raw: Dict) -> Dict:
+    """Raw params with per-layer lists (``layers``, ``enc_layers``,
+    ``tail``; the hybrid's ``groups`` a list of lists) -> the reference's
+    stacked layout; the other entries are kept as they are."""
+    return {k: _stack(v, STACKED.get(k, 0)) for k, v in raw.items()}
+
+
+def forward_params(master: Dict, cfg: ModelConfig) -> Dict:
+    """A master tree (the reference's layout) as the prepared params the
+    model functions take, differentiably: each layer's slice of the stacked
+    leaves as a view, every float cast to the compute dtype, and
+    ``unembed`` = ``embed`` rounded to the compute dtype and widened to
+    float32, transposed, for tied embeddings (else ``lm_head`` so rounded),
+    as ``prepare_params`` computes it."""
+    ct = torch_dtype(cfg.compute_dtype)
+
+    def cast(x):
+        if isinstance(x, dict):
+            return {k: cast(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [cast(v) for v in x]
+        return x.to(ct) if x.is_floating_point() else x
+
+    out = {k: cast(_unbind(v, STACKED.get(k, 0)))
+           for k, v in master.items() if k != "lm_head"}
+    out["unembed"] = (out["embed"].float().t() if cfg.tie_embeddings
+                      else master["lm_head"].to(ct).float())
+    return out

@@ -114,6 +114,51 @@ def test_key_tile_and_grid():
         == [96, 1, 1]
 
 
+@pytest.mark.parametrize("pairing", ["kv_major", "g_major"])
+def test_tiled_ref_flip_slack(pairing):
+    """``flip_slack`` leaves the walk's output as it is and adds, per
+    element, what one entry of P rounded to bf16 the other way moves it:
+    max_j ulp(P_ij) |v_jc| / l_i (one key tile here, so P is the row's
+    softmax numerator), brute-forced over every j; 0 with P unrounded. A
+    second case (d 256: 32-key tiles, 40 positions) carries it across key
+    tiles: the output unchanged, the slack positive everywhere."""
+    b, sq, hq, hkv, d, dv = 1, 9, 4, 2, 16, 8
+    q, k, v = _t(dense_case(b, sq, sq, hq, hkv, d, dv, seed=11))
+    kw = dict(causal=True, pairing=pairing)
+    plain = attention_tiled_ref(q, k, v, p_dtype=BF16, **kw)
+    out, slack = attention_tiled_ref(q, k, v, p_dtype=BF16, flip_slack=True,
+                                     **kw)
+    assert torch.equal(out, plain) and slack.shape == out.shape
+    _, zero = attention_tiled_ref(q, k, v, flip_slack=True, **kw)
+    assert not zero.any()
+    g = hq // hkv
+    c = torch.tensor(torch.tensor(d, dtype=torch.float64).rsqrt().item()
+                     * np.log2(np.e), dtype=torch.float32)
+    for pos in range(sq):
+        for h in range(hq):
+            kvh = h % hkv if pairing == "g_major" else h // g
+            sc = (q[0, pos, h] @ k[0, :pos + 1, kvh].T) * c
+            pw = torch.exp2(sc - sc.max())
+            pb = pw.to(BF16).float()
+            _, e = torch.frexp(pb)
+            u = torch.ldexp(torch.ones_like(pb), e - 8)
+            vv = v[0, :pos + 1, kvh]
+            want = (u[:, None] * vv.abs()).amax(0) / pw.sum()
+            torch.testing.assert_close(slack[0, pos, h], want, rtol=1e-5,
+                                       atol=0)
+            for j in range(pos + 1):
+                for step in (u[j], -u[j]):
+                    alt = pb.clone()
+                    alt[j] += step
+                    moved = ((alt - pb) @ vv / pw.sum()).abs()
+                    assert (moved <= want * (1 + 1e-5)).all()
+    q, k, v = _t(dense_case(1, 40, 40, 2, 1, 256, 16, seed=12))
+    out, slack = attention_tiled_ref(q, k, v, p_dtype=BF16, flip_slack=True,
+                                     **kw)
+    assert torch.equal(out, attention_tiled_ref(q, k, v, p_dtype=BF16, **kw))
+    assert (slack > 0).all()
+
+
 # --------------------------------------------- K4: the split-K decode walk
 
 # (b, S, hq, hkv, d, dv, lens): a row of length 1 in a long cache, a full

@@ -12,11 +12,12 @@ have yet.
 A mixed fleet holds one JAX member and one port member with converted
 weights: a session moves each way, suddenly between turns and fluidly
 mid-decode, and its tokens equal a JAX-only engine's. The port's
-``reshard_params`` and ``elastic_restore`` raise until the port has a mesh
-and a checkpointer."""
+``reshard_params`` and ``elastic_restore`` place a tree on one device
+and raise on a mesh of several until the port has tensor parallelism."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_smoke_config as jax_smoke
 from repro.models import build
@@ -493,13 +494,20 @@ def test_mixed_fleet_fluid_migration_bit_exact(src, setup):
     assert all(_release_all(m.backend.engine) == 0 for m in fleet.members)
 
 
-# ------------------------------------ the re-meshing helpers, not ported
+# ------------------- the re-meshing helpers: one device, no mesh ported
 
 def test_remesh_helpers_raise_until_the_port_has_a_mesh(setup):
+    """A single-device target is a move (the checkpointer's restore is
+    tests/test_torch_checkpoint.py's); a mesh of several devices raises
+    until the port has tensor parallelism."""
     cfg, params = setup[:2]
     assert reshard_params is sharding.reshard_params
     assert elastic_restore is sharding.elastic_restore
+    assert reshard_params(cfg, params, mesh=None) is params
+    moved = reshard_params(cfg, params, mesh="cpu")
+    assert torch.equal(moved["embed"], params["embed"])
+    two = ["cpu", "cpu"]
     with pytest.raises(NotImplementedError, match="item 9"):
-        reshard_params(cfg, params, mesh=None)
-    with pytest.raises(NotImplementedError, match="items 9 and 10"):
-        elastic_restore(cfg, None, params, mesh=None)
+        reshard_params(cfg, params, mesh=two)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        elastic_restore(cfg, None, params, mesh=two)

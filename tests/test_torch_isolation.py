@@ -64,6 +64,23 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
+TRAINING_MODULES = """training/__init__.py training/data.py
+training/optimizer.py training/train_step.py checkpoint/__init__.py
+checkpoint/checkpointer.py launch/train.py tree.py
+kernels/flash_attention/backward.py kernels/ssd/backward.py""".split()
+
+
+def test_training_modules_are_checked():
+    """The training path's modules are rewrites, not copies, and each is
+    among the sources ``test_no_jax_or_reference_imports`` reads."""
+    sources = set(_port_sources())
+    for rel in TRAINING_MODULES:
+        assert PORT / rel in sources, rel
+        assert rel not in VERBATIM
+        text = (PORT / rel).read_text()
+        assert "import jax" not in text and "from repro." not in text, rel
+
+
 def test_importing_the_port_loads_neither_jax_nor_repro():
     mods = [".".join(p.relative_to(PORT.parent).with_suffix("").parts)
             .removesuffix(".__init__") for p in PORT.rglob("*.py")]
@@ -121,6 +138,18 @@ def test_engine_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="cuda"):
         params_from_jax({"embed": np.zeros((cfg.vocab_size, cfg.d_model),
                                            np.float32)}, cfg)
+    from repro_torch.launch import train
+    from repro_torch.models import build
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.weights import train_params_from_jax
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--arch", "gemma-2b", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        build(cfg).init_train_params()
+    with pytest.raises(RuntimeError, match="cuda"):
+        SyntheticLM(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_params_from_jax({"embed": np.zeros((2, 2), np.float32)})
 
 
 def test_chip_smoke_refuses_without_card_or_repo(tmp_path):

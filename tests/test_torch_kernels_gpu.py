@@ -1,6 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
 K1 (paged chunked prefill), K2 (paged decode), K3 (flash attention), K4
-(decode over a contiguous cache) and K5 (the Mamba-2 SSD chunked scan).
+(decode over a contiguous cache) and K5 (the Mamba-2 SSD chunked scan);
+K3's and K5's gradients (their autograd Functions) against autograd of
+the plain versions, and the smoke models' gradients on the card against
+the CPU's.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device
 (the kernels have no CPU mode). This file imports no jax, so it runs on a
@@ -380,7 +383,8 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
 
 # (b, s, h, p, g, n, chunk, with an initial state): mamba2-370m's and
 # zamba2-7b's heads over two chunks, a ragged single chunk (L = s = 100),
-# two B/C groups, the other head dims, an initial state
+# two B/C groups, the other head dims, an initial state, and mamba2-370m's
+# training step (8 rows of one chunk of 128, an initial state)
 SSD_SHAPES = [(1, 512, 4, 64, 1, 128, 256, False),
               (1, 512, 4, 64, 1, 64, 256, False),
               (4, 512, 32, 64, 1, 128, 256, False),    # mamba2-370m prefill
@@ -389,7 +393,8 @@ SSD_SHAPES = [(1, 512, 4, 64, 1, 128, 256, False),
               (2, 128, 8, 32, 2, 64, 64, False),
               (2, 96, 4, 16, 1, 16, 32, False),
               (1, 128, 2, 128, 1, 64, 64, False),
-              (2, 256, 4, 64, 1, 128, 128, True)]
+              (2, 256, 4, 64, 1, 128, 128, True),
+              (8, 128, 32, 64, 1, 128, 256, True)]
 # bf16: m, w and y are rounded to bf16 at the same points on both sides, and
 # a rounding of m flips where the f32 sums before it differ; f32: another
 # summation order
@@ -506,3 +511,162 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
         ssd_ops.ssd(xa, dt, A, Ba[..., :8].contiguous(),
                     Ca[..., :8].contiguous(), 16)
     assert ssd_ops.ssd.launches == before
+
+
+# ------------------------------------------------ the gradients (training)
+
+# max |err| <= tol x the plain gradient's largest magnitude: bf16 takes the
+# kernel's rounded output and P rounded to bf16 in its forward; f32 differs
+# by summation order
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the first forward shapes, and gemma-2b's training step (8 rows of 128)
+GRAD_FLASH_SHAPES = FLASH_SHAPES[:4] + [(2, 128, 8, 1, 256, 256, True),
+                                        (8, 128, 8, 1, 256, 256, True)]
+
+
+def _grads_close(got, want, tol):
+    for g, w in zip(got, want):
+        assert torch.isfinite(g.float()).all()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= tol * w.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pairing", ["kv_major", "g_major"])
+@pytest.mark.parametrize("shape", GRAD_FLASH_SHAPES)
+def test_flash_gradient_matches_plain(cuda, shape, pairing, dtype):
+    """K3 with an input that requires grad goes through FlashAttentionFn
+    (one launch, the lse kept): its output against the plain version, and
+    against the walk it runs within TIGHT plus one entry of P rounded the
+    other way (``attention_tiled_ref``'s flip slack); dq, dk, dv against
+    autograd of the plain version; the lse against the plain one."""
+    b, sq, hq, hkv, d, dv, causal = shape
+    q, k, v = (torch.from_numpy(x).to(cuda).to(dtype)
+               for x in dense_case(b, sq, sq, hq, hkv, d, dv, seed=sq + 1))
+    do = torch.randn((b, sq, hq, dv), device=cuda).to(dtype)
+    kw = dict(causal=causal, pairing=pairing)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(*leaves, **kw)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    assert fa.flash_attention.launches == before + 1
+    got = torch.autograd.grad(out, leaves, do)
+    assert [g.dtype for g in got] == [dtype] * 3
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain_out = fa_ref.attention_ref(*plain, **kw)
+    want = torch.autograd.grad(plain_out, plain, do)
+    torch.cuda.synchronize()
+    tol = dict(DTYPES)[dtype]
+    torch.testing.assert_close(out.detach().float(),
+                               plain_out.detach().float(), atol=tol, rtol=tol)
+    walk, slack = fa_ref.attention_tiled_ref(
+        q.float(), k.float(), v.float(), **kw,
+        p_dtype=dtype if dtype == torch.bfloat16 else None, flip_slack=True)
+    atol, rtol = TIGHT["K3"][dtype]
+    assert ((out.detach().float() - walk).abs()
+            <= atol + rtol * walk.abs() + slack).all()
+    _grads_close(got, want, GRAD_TOL[dtype])
+    o2, lse = fa.flash_attention_lse(q, k, v, **kw)
+    assert torch.equal(o2, out.detach())
+    want_lse = fa_ref.attention_lse_ref(q, k, v, **kw)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSD_SHAPES[2:3] + SSD_SHAPES[4:])
+def test_ssd_gradient_matches_plain(cuda, shape, dtype):
+    """K5 with an input that requires grad goes through SSDFn (one launch):
+    y and the final state against the plain version as
+    ``test_ssd_kernel_matches_plain`` holds them; the gradients of the conv
+    output x, B and C are views of, dt, A and the initial state against
+    autograd of the plain version (the backward recomputes the plain
+    version, so these check SSDFn's wiring)."""
+    b, s, h, p, g, n, chunk, _ = shape
+    xbc, dt, A, st = ssd_case(b, s, h, p, g, n, seed=s + 2, init=True)
+    ins = [torch.from_numpy(a).to(cuda) for a in (xbc, dt, A, st)]
+    ins[0] = ins[0].to(dtype)
+    dy = torch.randn((b, s, h, p), device=cuda).to(dtype)
+    dst = torch.randn((b, g, h // g, n, p), device=cuda)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        x, B, C = torch.split(leaves[0], [h * p, g * n, g * n], dim=-1)
+        y, state = fn(x.unflatten(-1, (h, p)), leaves[1], leaves[2],
+                      B.unflatten(-1, (g, n)), C.unflatten(-1, (g, n)),
+                      chunk, leaves[3])
+        return (y, state), torch.autograd.grad((y, state), leaves,
+                                               (dy, dst))
+
+    before = ssd_ops.ssd.launches
+    out, got = run(ssd_ops.ssd)
+    assert type(out[0].grad_fn).__name__ == "SSDFnBackward"
+    assert ssd_ops.ssd.launches == before + 1
+    want_out, want = run(ssd_ref.ssd_chunked_ref)
+    torch.cuda.synchronize()
+    tol = dict(SSD_DTYPES)[dtype]
+    for o, w in zip(out, want_out):
+        torch.testing.assert_close(o.detach().float(), w.detach().float(),
+                                   atol=tol, rtol=tol)
+    _grads_close(got, want, GRAD_TOL[dtype])
+
+
+GRAD_ARCHS = ["gemma-2b", "deepseek-v2-lite-16b", "mamba2-370m", "zamba2-7b",
+              "whisper-tiny"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", GRAD_ARCHS)
+def test_model_gradients_on_the_card_equal_the_cpu(cuda, arch):
+    """The smoke model's loss and every gradient leaf at f32 on the card
+    (K3 and K5 through their Functions) against the CPU's (the plain
+    versions under autograd), from the same params and batch."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import backward as fa_bwd
+    from repro_torch.kernels.ssd import backward as ssd_bwd
+    from repro_torch.models import build
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.tree import leaves, tree_map
+    cfg = get_smoke_config(arch).replace(compute_dtype="float32")
+    model = build(cfg)
+    params = model.init_train_params(seed=0, device="cpu")
+    batch = SyntheticLM(cfg, 2, 16, seed=1, device="cpu").batch_at(0)
+    (want, _), want_g = value_and_grad(model.loss)(params, batch)
+    calls = (fa_bwd.flash_attention_backward.calls,
+             ssd_bwd.ssd_backward.calls)
+    (got, _), got_g = value_and_grad(model.loss)(
+        tree_map(lambda t: t.to(cuda), params),
+        {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    ran = (fa_bwd.flash_attention_backward.calls > calls[0],
+           ssd_bwd.ssd_backward.calls > calls[1])
+    assert ran == (cfg.family != "ssm", cfg.ssm is not None)
+    assert abs(got.item() - want.item()) <= 1e-5
+    for g, w in zip(leaves(got_g), leaves(want_g)):
+        err = (g.cpu() - w).abs().max().item()
+        assert err <= 1e-4 * max(1.0, w.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,leaf", [("gemma-2b", ("attn", "wq")),
+                                       ("gemma-2b", ("attn", "wk")),
+                                       ("gemma-2b", ("attn", "wv")),
+                                       ("mamba2-370m", ("mamba", "in_proj"))])
+def test_gradients_reach_before_the_kernels(cuda, arch, leaf):
+    """bf16 on the card: every layer's slice of what feeds K3 (wq, wk, wv)
+    or K5 (the Mamba block's in_proj) gets a finite, non-zero gradient."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.train_step import value_and_grad
+    cfg = get_smoke_config(arch)
+    model = build(cfg)
+    params = model.init_train_params(seed=0, device=cuda)
+    batch = SyntheticLM(cfg, 2, 16, seed=1, device=cuda).batch_at(0)
+    _, grads = value_and_grad(model.loss)(params, batch)
+    g = grads["layers"][leaf[0]][leaf[1]]
+    assert g.shape[0] == cfg.n_layers
+    for layer in g:
+        assert torch.isfinite(layer).all() and layer.abs().max() > 0
