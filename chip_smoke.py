@@ -17,8 +17,9 @@ Phases, each printing one JSON line (several for the kernel cases):
                  ragged valids, plus one hkv=2 case and the paths' prefill
                  shapes (b=8, C=32: the megastep's bucket; b=1, C=32: the
                  legacy chunk), and at C in {1, 32} llama4-scout's heads
-                 (hq=40, hkv=8, d=128) and starcoder2-7b's (hq=36,
-                 hkv=4); bit for bit against its gathered-view twin
+                 (hq=40, hkv=8, d=128), starcoder2-7b's (hq=36, hkv=4)
+                 and its tensor-parallel shards' (tp 2: hq=18, hkv=2;
+                 tp 4: hq=9, hkv=1); bit for bit against its gathered-view twin
                  and on a second call; each row gives the kernel's route
                  (split decode at C=1, tensor cores at bf16 C>1, the walk
                  at f32 C>1) and its key ranges, and is held to the walk
@@ -86,17 +87,19 @@ Phases, each printing one JSON line (several for the kernel cases):
               and profiles a decode step with all 4 slots busy.
 7. serve    — the serving CLI, ``repro_torch.launch.serve.main(argv)`` in
               this process at full gemma-2b (bf16, the CLI's defaults:
-              pages of 8, 129 blocks, 4 rows, max_len 192), five runs:
+              pages of 8, 129 blocks, 4 rows, max_len 192), six runs:
               (a) --paged --token-budget 64 with a journal, a disk tier,
               a Chrome trace and a metrics dump; (b) --fleet 2 with a
               shared journal and --kill 0; (c) --fleet 2 --drain 1;
-              (d) --autopilot; (e) the dense engine. Checks every turn
+              (d) --autopilot; (e) the dense engine; (f) --paged --mesh
+              tp=1 (the tensor-parallel megastep). Checks every turn
               completes (the resubmitted ones too), the kill's "lost 1"
               and the drain's "drained 1", the trace and the dump, one
               dispatch per step, and the launches: K1 = n_layers x steps
-              on (a)-(d), K3 and K4 alone on (e), counted from the
+              on (a)-(d) and (f), K3 and K4 alone on (e), counted from the
               AgentRM's construction (after compile_buckets). Then
-              ``python -m repro_torch.launch.serve`` as a subprocess, and
+              ``python -m repro_torch.launch.serve --paged --mesh tp=1``
+              as a subprocess, and
               at float32, full width, the library's recovery paths against
               a run without faults: a crash restored from the journal, a
               fluid migration mid-decode, a disk-tier hibernate/wake, a
@@ -137,12 +140,26 @@ Phases, each printing one JSON line (several for the kernel cases):
               (K4); then the serving CLI ``--paged``, text only (K1).
 14. starcoder2 — starcoder2-7b at full width and depth (hq 36 over 4 kv
               heads) through the serving CLI ``--paged`` at its defaults.
-15. encdec  — whisper-tiny at full size in bf16: ``forward`` (K3 not
+15. tp      — the tensor-parallel megastep (``mesh=make_tp_mesh(tp,
+              devices=["cuda:0"] * tp)``, every shard on the card) at
+              starcoder2-7b's full width and depth in bf16: ``main``'s
+              AgentRM run without a mesh and at tp 1 (tokens and each
+              session's live pages equal bit for bit), at tp 2 and 4
+              (every turn, one call and 4 x max_batch host bytes a step,
+              K1 = 32 x tp x steps; token agreement with tp 1 reported);
+              ``main``'s profile windows at tp 1, 2, 4 (K1 ms per launch,
+              the device time of the per-layer sums of the attention
+              partials); then f32: at a 4-layer cut tp 2 and 4 give the
+              mesh-less tokens, and sessions hibernated at tp 2 continue
+              at tp 4 with them; at full depth each tp's live pages after
+              the first turns lie within 1e-4 of the largest |value| of
+              the mesh-less engine's.
+16. encdec  — whisper-tiny at full size in bf16: ``forward`` (K3 not
               causal over 1500 encoder positions and across, causal over
               the text), ``init_cross_cache`` + 32 greedy ``decode_step``s
               (K4 self, K3 across at sq 1), a profiled decode step; then
               f32 forward against decode, within 2e-3.
-16. train   — ``repro_torch.launch.train.main(argv)`` in this process:
+17. train   — ``repro_torch.launch.train.main(argv)`` in this process:
               gemma-2b at full width and depth (bf16 compute, f32 master
               params and AdamW moments, remat on), 4 steps of 8 x 128, no
               checkpoint: each step's loss, grad norm, ms and peak memory;
@@ -211,6 +228,9 @@ KERNEL_NAMES = {"K1": ("paged_walk_kernel", "paged_tc_kernel",
                 "K3": ("flash_kernel", "flash_tc_kernel"),
                 "K4": ("decode_split_kernel", "decode_merge_kernel"),
                 "K5": ("ssd_f32_kernel", "ssd_chunk_kernel", "ssd_out_kernel")}
+# the record_function scope of the tensor-parallel megastep's per-layer
+# sums (models/transformer.py), read by profile_steps
+PARTIAL_SUM = "tp.partial_sum"
 # the workload of the serving paths: agents, new tokens per turn (base +
 # a per-agent jitter), and the prompt cap in tokens
 N_AGENTS, NEW_TOKENS, JITTER, PROMPT_CAP = 6, 16, 8, 384
@@ -405,8 +425,9 @@ def k1_cases(torch, flush):
     """K1 at the megastep's buckets (b = 8 rows, C in {1, 8, 32, 64, 256}),
     the legacy loop's prefill chunk (b = 1, C = 32, a history ending
     mid-page) and one hkv = 2 case, at gemma-2b's heads; and at C in
-    {1, 32} at llama4-scout's heads (hq 40, hkv 8) and starcoder2-7b's
-    (hq 36, hkv 4), d = 128. Each row gives the kernel's plan; each
+    {1, 32} at llama4-scout's heads (hq 40, hkv 8), starcoder2-7b's
+    (hq 36, hkv 4) and its tensor-parallel shards' (hq 18, hkv 2; hq 9,
+    hkv 1), d = 128. Each row gives the kernel's plan; each
     case is held to the walk it runs, to its twin bit for bit and to a
     second call; at C = 1, K2 at lens = cache_lens + 1 to K1 bit for bit on
     the rows with valids = 1."""
@@ -422,8 +443,11 @@ def k1_cases(torch, flush):
               (torch.bfloat16, 32, 1, 1, ([300], [32]), gemma)]
     # llama4-scout's heads (g = 5) and starcoder2-7b's (g = 9), d = 128,
     # at the megastep's decode step and prefill bucket
+    # and the tensor-parallel megastep's starcoder2-7b shards (tp 2:
+    # hq 18 over 2 kv heads; tp 4: 9 over 1)
     cases += [(torch.bfloat16, C, hkv, 8, None, (hq, 128))
-              for hq, hkv in ((40, 8), (36, 4)) for C in (1, 32)]
+              for hq, hkv in ((40, 8), (36, 4), (18, 2), (9, 1))
+              for C in (1, 32)]
     for n, (dtype, C, hkv, b, fixed, (hq, d)) in enumerate(cases):
         args = _paged_case(torch, dtype, C, hkv, seed=1000 + n, b=b, hq=hq,
                            d=d, rows=fixed)
@@ -1136,7 +1160,7 @@ def profile_steps(torch, cfg, params, ekw, seed: int, n_bare: int = 6,
         events = prof.key_averages()
         dev = {e.key: e.self_device_time_total / 1e3 / n for e in events
                if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0}
+               and e.self_device_time_total > 0 and e.key != PARTIAL_SUM}
         host = {e.key: e.self_cpu_time_total / 1e3 / n for e in events
                 if e.device_type == DeviceType.CPU
                 and e.self_cpu_time_total > 0}
@@ -1152,6 +1176,14 @@ def profile_steps(torch, cfg, params, ekw, seed: int, n_bare: int = 6,
             "paged_kernel_ms_per_step": sum(
                 v for k, v in dev.items()
                 if any(x in k for x in KERNEL_NAMES["K1"])),
+            # the tensor-parallel megastep's per-layer sums of the
+            # attention partials: the kernels under their record_function
+            # scope (its host-side events; the device-side annotation
+            # spans the launch gaps between them too)
+            "partial_sum_ms_per_step": sum(
+                e.device_time_total for e in prof.events()
+                if e.name == PARTIAL_SUM
+                and e.device_type == DeviceType.CPU) / 1e3 / n,
             "top_device_ms_per_step": _top(dev),
             "host_op_ms_per_step": sum(host.values()),
             "top_host_op_ms_per_step": _top(host)})
@@ -1351,6 +1383,7 @@ SERVE_RUNS = {
     "c_fleet_drain": ["--paged", "--fleet", "2", "--drain", "1"],
     "d_autopilot": ["--paged", "--autopilot"],
     "e_dense": [],
+    "f_mesh_tp1": ["--paged", "--mesh", "tp=1"],
 }
 
 
@@ -1516,23 +1549,26 @@ def _serve_checks(torch, cfg) -> dict:
 
 
 def _serve_subprocess(cfg) -> dict:
-    """The entry point as users start it."""
+    """The entry point as users start it, over the tensor-parallel
+    megastep at tp 1."""
     import os
     argv = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-            cfg.name, "--paged", "--agents", "3", "--turns", "6"]
+            cfg.name, "--paged", "--mesh", "tp=1", "--agents", "3",
+            "--turns", "6"]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     out = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=600)
     wall = time.perf_counter() - t0
     served = re.findall(r"^\[serve\] agent-\d+ -> tok:", out.stdout, re.M)
-    if out.returncode != 0 or len(served) != 6:
+    if out.returncode != 0 or len(served) != 6 or "tp=1," not in out.stdout:
         raise AssertionError(f"python -m repro_torch.launch.serve: exit "
                              f"{out.returncode}, {len(served)} of 6 turns\n"
                              f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
     return {"argv": argv[1:], "returncode": 0, "turns": 6, "wall_s": wall,
             "summary": [ln for ln in out.stdout.splitlines()
-                        if ln.startswith("[serve] ttft")]}
+                        if ln.startswith(("[serve] ttft",
+                                          "[serve] megastep"))]}
 
 
 def _drive_turns(be, agents: dict, max_steps: int = 400) -> tuple:
@@ -2309,6 +2345,230 @@ def starcoder2_phase(torch) -> dict:
     return {"arch": cfg.name, "n_layers": cfg.n_layers, **cli}
 
 
+# ------------------------------------------------------------------ tp
+
+TP_WIDTHS = (1, 2, 4)
+
+
+def _tp_mesh(tp: int):
+    """A mesh of ``tp`` shards, every one on the card (cuda:0)."""
+    from repro_torch.launch.mesh import make_tp_mesh
+    return make_tp_mesh(tp, devices=["cuda:0"] * tp)
+
+
+def _tp_serve(torch, cfg, params, prompts, tp):
+    """``main``'s AgentRM run on the megastep engine, without a mesh
+    (``tp`` None) or over ``tp`` shards: every turn served, one
+    mixed_step_paged call and 4 x max_batch host bytes per step, K1
+    launched n_layers x tp times a step. Returns (engine, tokens, row)."""
+    from repro_torch.core import AgentRM, AgentRMConfig
+    from repro_torch.serving import PagedEngineBackend, PagedInferenceEngine
+    path = f"tp {tp}" if tp else "tp none"
+    engine = PagedInferenceEngine(cfg, params, **MEGASTEP_ENGINE,
+                                  mesh=_tp_mesh(tp) if tp else None)
+    engine.compile_buckets()
+    backend = PagedEngineBackend(engine, max_new_tokens=NEW_TOKENS,
+                                 prompt_tokens=PROMPT_CAP,
+                                 new_tokens_jitter=JITTER)
+    rm = AgentRM(backend, AgentRMConfig(detect_after_s=120.0))
+    engine.jit_dispatches = 0
+    engine.steps_dispatched = 0
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = _drive(rm, prompts)
+    engine.sync()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    st = engine.step_stats()
+    _check_turns(path, toks, _n_new)
+    if st["jit_dispatches_per_step"] != 1.0 \
+            or st["host_transfer_bytes_per_step"] != 4 * engine.max_batch:
+        raise AssertionError(f"{path}: {st['jit_dispatches_per_step']} "
+                             "calls per step, "
+                             f"{st['host_transfer_bytes_per_step']} host "
+                             "bytes per step")
+    steps = st["steps_dispatched"]
+    _expect(path, counts, {"K1": cfg.n_layers * (tp or 1) * steps})
+    n_out = sum(len(t) for t in toks.values())
+    return engine, toks, {
+        "tp": tp, "turns": len(toks), "failed_turns": 0, "steps": steps,
+        "tokens_out": n_out, "wall_s": wall, "tokens_per_s": n_out / wall,
+        "step_p95_s": st["step_p95_s"],
+        "jit_dispatches_per_step": st["jit_dispatches_per_step"],
+        "host_transfer_bytes_per_step": st["host_transfer_bytes_per_step"],
+        "k1_per_step": counts["K1"] / steps, "launches": counts}
+
+
+def _live_pages(eng) -> dict:
+    """{first-turn prompt: (k, v)} of every resident session: its live
+    positions, (L, tokens, hkv, hd) host tensors in the pool's dtype,
+    whatever blocks hold them."""
+    from repro_torch.weights import numpy_to_torch
+    out = {}
+    for req in eng.reqs.values():
+        if req.table is None:
+            continue
+        n = req.table.num_tokens
+        out[req.prompt.tobytes()] = tuple(
+            numpy_to_torch(p).flatten(1, 2)[:, :n]
+            for p in eng.cache.gather(req.table))
+    if len(out) != N_AGENTS:
+        raise AssertionError(f"{len(out)} resident sessions, expected "
+                             f"{N_AGENTS}")
+    return out
+
+
+def _pages_err(got: dict, want: dict) -> float:
+    if got.keys() != want.keys():
+        raise AssertionError("the sessions differ")
+    return max((a.float() - b.float()).abs().max().item()
+               for key in want for a, b in zip(got[key], want[key]))
+
+
+def _first_turns(cfg, params, tokenize, prompts, mesh) -> tuple:
+    """Every agent's first turn on a fresh engine, all together:
+    ({agent: tokens}, the sessions' live pages)."""
+    from repro_torch.serving import PagedInferenceEngine
+    eng = PagedInferenceEngine(cfg, params, **MEGASTEP_ENGINE, mesh=mesh)
+    rids = {a: eng.submit(tokenize(prompts[a][0]), _n_new(a), retain=True)
+            for a in range(N_AGENTS)}
+    eng.run_to_completion(max_steps=4096)
+    return ({a: list(eng.reqs[r].out_tokens) for a, r in rids.items()},
+            _live_pages(eng))
+
+
+def _tp_f32(torch, cfg, prompts, seed: int) -> dict:
+    """float32: (a) at the full-width 4-layer cut, tp 2 and 4 give the
+    mesh-less engine's tokens on ``_replay_paged``'s schedule, and (b) a
+    session hibernated at tp 2 continues at tp 4 with them, through one
+    swap store; (c) at full depth, after every agent's first turn, each
+    tp's live pages lie within 1e-4 of the largest |page value| of the
+    mesh-less engine's (the sums' order differs), tokens reported."""
+    from repro_torch.core.context.tiers import KVSwapStore
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import PagedInferenceEngine, byte_tokenize
+
+    def tokenize(text):
+        return byte_tokenize(text, cfg.vocab_size, max_len=PROMPT_CAP)
+
+    def draw(c):
+        return init_params(c, generator=torch.Generator(
+            device="cuda").manual_seed(seed), device="cuda")
+
+    cut = _f32_cut(cfg, 4)
+    params = draw(cut)
+    want = _replay_paged(cut, params, MEGASTEP_ENGINE, tokenize, prompts)
+    for tp in (2, 4):
+        got = _replay_paged(cut, params, {**MEGASTEP_ENGINE,
+                                          "mesh": _tp_mesh(tp)},
+                            tokenize, prompts)
+        if got != want:
+            raise AssertionError(f"tp f32 cut: tp {tp} tokens differ from "
+                                 f"the mesh-less engine's, agreement "
+                                 f"{_agreement(got, want)}")
+    store = KVSwapStore()
+    a = PagedInferenceEngine(cut, params, **MEGASTEP_ENGINE,
+                             mesh=_tp_mesh(2), swap_store=store)
+    rids = {ag: a.submit(tokenize(prompts[ag][0]), _n_new(ag), retain=True)
+            for ag in range(N_AGENTS)}
+    a.run_to_completion(max_steps=4096)
+    got = {(ag, 0): list(a.reqs[r].out_tokens) for ag, r in rids.items()}
+    for r in rids.values():
+        a.hibernate(r)
+    b = PagedInferenceEngine(cut, params, **MEGASTEP_ENGINE,
+                             mesh=_tp_mesh(4), swap_store=store)
+    for r in rids.values():
+        b.reqs[r] = a.reqs[r]        # adopt the swapped sessions wholesale
+    b._next_rid = max(rids.values()) + 1
+    for ag, r in rids.items():
+        b.extend(r, tokenize(prompts[ag][1]), _n_new(ag))
+    b.run_to_completion(max_steps=4096)
+    got.update({(ag, 1): list(b.reqs[r].out_tokens)
+                for ag, r in rids.items()})
+    if got != want:
+        raise AssertionError("tp f32 cut: hibernated at tp 2, woken at tp "
+                             "4, the tokens differ: agreement "
+                             f"{_agreement(got, want)}")
+    del a, b, params, store
+    _free()
+
+    full = _f32_cut(cfg)
+    params = draw(full)
+    want_toks, want_pages = _first_turns(full, params, tokenize, prompts,
+                                         None)
+    _free()
+    scale = max(p.abs().max().item() for kv in want_pages.values()
+                for p in kv)
+    rows = {}
+    for tp in TP_WIDTHS:
+        toks, pages = _first_turns(full, params, tokenize, prompts,
+                                   _tp_mesh(tp))
+        _free()
+        err = _pages_err(pages, want_pages)
+        if err > 1e-4 * scale:
+            raise AssertionError(f"tp f32 full depth: tp {tp} pages "
+                                 f"{err} from the mesh-less engine's, "
+                                 f"beyond 1e-4 x {scale}")
+        rows[tp] = {"pool_max_abs_err": err,
+                    "token_agreement": _agreement(toks, want_toks)}
+    del params
+    _free()
+    return {"cut_layers": 4, "cut_tokens_equal": [2, 4],
+            "hibernate_tp2_wake_tp4_equal": True, "full_depth": rows,
+            "full_depth_pool_tol": 1e-4 * scale, "full_depth_scale": scale}
+
+
+def tp_phase(torch, prompts, seed: int) -> dict:
+    """The tensor-parallel megastep at starcoder2-7b's full width and depth
+    (32 layers, 36 heads of 128 over 4 kv heads), every shard on the card:
+    AgentRM without a mesh and at tp 1 (tokens and live pages equal bit for
+    bit), tp 2 and 4 (every turn served, K1 at 32 x tp a step; token
+    agreement with tp 1, no gate: bf16 sums in another order may flip a
+    greedy argmax); profile windows at each tp; then ``_tp_f32``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    cfg = get_config("starcoder2-7b")
+    params = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    eng, base_toks, base = _tp_serve(torch, cfg, params, prompts, None)
+    base_pages = _live_pages(eng)
+    del eng
+    _free()
+    eng, toks1, row1 = _tp_serve(torch, cfg, params, prompts, 1)
+    err = _pages_err(_live_pages(eng), base_pages)
+    del eng
+    _free()
+    if toks1 != base_toks or err != 0:
+        raise AssertionError(f"tp 1: token agreement "
+                             f"{_agreement(toks1, base_toks)}, pages {err} "
+                             "from the mesh-less engine's, expected equal "
+                             "bits")
+    runs = {"none": base, "1": row1}
+    for tp in (2, 4):
+        eng, toks, row = _tp_serve(torch, cfg, params, prompts, tp)
+        row["token_agreement_with_tp1"] = _agreement(toks, toks1)
+        runs[str(tp)] = row
+        del eng
+        _free()
+    windows = {}
+    for tp in TP_WIDTHS:
+        prof = profile_steps(torch, cfg, params, {**MEGASTEP_ENGINE,
+                                                  "mesh": _tp_mesh(tp)}, seed)
+        for w in prof.values():
+            w["k1_ms_per_launch"] = (w["paged_kernel_ms_per_step"]
+                                     / (cfg.n_layers * tp))
+        windows[str(tp)] = prof
+        _free()
+    del params
+    _free()
+    f32 = _tp_f32(torch, cfg, prompts, seed)
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in base["launches"]}
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "tp1_bitwise_equal": True, "serve": runs, "profile": windows,
+            "f32": f32, "launches": launches}
+
+
 def encdec_phase(torch, seed: int, b: int = 2, s: int = 64,
                  steps: int = 32):
     """whisper-tiny at full size (4 encoder and 4 decoder layers, d_model
@@ -2792,6 +3052,8 @@ def main() -> int:
     done("vlm", vlm)
     starcoder2 = starcoder2_phase(torch)
     done("starcoder2", starcoder2)
+    tp = tp_phase(torch, prompts, args.seed)
+    done("tp", tp)
     encdec = encdec_phase(torch, args.seed)
     done("encdec", encdec)
     _free()
@@ -2801,7 +3063,7 @@ def main() -> int:
     launches = {name: sum(p["launches"][name]
                           for p in (main, legacy, dense, serve, lockstep,
                                     ssm, hybrid, moe, mla, vlm, starcoder2,
-                                    encdec, train))
+                                    tp, encdec, train))
                 for name in cases}
     src = "src/repro_torch/kernels/"
     ref = "src/repro/kernels/"

@@ -1,5 +1,6 @@
 """Distribution utilities of the port: the elastic engine fleet
-(``elastic.py``, a copy of the reference's), the serving mesh's config
-check and the single-device restore (``sharding.py``). The reference's
-``constrain.py`` belongs with tensor parallelism, which the port does not
-have yet."""
+(``elastic.py``, a copy of the reference's) and ``sharding.py``: the
+serving rules of the tensor-parallel megastep (its mesh is
+``launch/mesh.py``) and the single-device restore. The reference's
+training rules, ``constrain.py`` and the dry-run belong to a later slice
+of the port."""

@@ -26,9 +26,12 @@ exports a Chrome trace-event file on exit (open in Perfetto / about:
 tracing); ``--metrics-dump metrics.json`` writes the unified registry
 snapshot.
 
-``--mesh tp=N`` is validated as the reference does it (requires
-``--paged``; N must divide the model's KV-head count), and a valid mesh
-then exits: tensor-parallel serving is not in the port yet.
+``--mesh tp=N`` (requires ``--paged``; N must divide the model's KV-head
+count) serves through the tensor-parallel megastep: the first N visible
+devices of ``--device``'s type, one shard each (the CPU counts as one
+device, so ``--device cpu`` takes ``tp=1``; ``launch.mesh.make_tp_mesh
+(devices=[...])`` puts several shards on one device). Every engine gets
+the mesh, a fleet's too.
 
 ``--fleet N`` (requires ``--paged``) runs N engines — named engine0..
 engineN-1, sharing one Observability — behind the elastic fleet router:
@@ -52,6 +55,7 @@ from repro_torch.core import AgentRM, AgentRMConfig
 from repro_torch.core.scheduler.task import QueueClass
 from repro_torch.distributed.elastic import FleetBackend
 from repro_torch.distributed.sharding import validate_tp
+from repro_torch.launch.mesh import make_tp_mesh
 from repro_torch.models import build
 from repro_torch.obs import Observability, TraceConfig
 from repro_torch.serving import (BackpressureError, DiskTierKVSwapStore,
@@ -75,10 +79,9 @@ def parse_mesh_spec(spec: str) -> int:
 
 def build_mesh(cfg, args):
     """CLI mesh validation: every mesh-shape error (bad spec, tp not
-    dividing the model's heads) becomes a SystemExit here — same pattern
-    as --token-budget. A valid mesh is a SystemExit too: the port has no
-    tensor-parallel megastep yet, and serving on one device instead would
-    be a silent fallback."""
+    dividing the model's heads, not enough devices) becomes a SystemExit
+    here — same pattern as --token-budget — so the engine never builds
+    with an invalid mesh."""
     if not getattr(args, "mesh", None):   # older test Namespaces lack it
         return None
     if not args.paged:
@@ -88,11 +91,9 @@ def build_mesh(cfg, args):
     try:
         tp = parse_mesh_spec(args.mesh)
         validate_tp(cfg, tp)
+        return make_tp_mesh(tp, device=getattr(args, "device", "cuda"))
     except ValueError as e:
         raise SystemExit(f"invalid --mesh: {e}") from e
-    raise SystemExit(f"--mesh tp={tp}: tensor-parallel serving is not in "
-                     "the port yet (ROADMAP Queue 1, item 9); drop --mesh "
-                     "to serve on one device")
 
 
 def build_obs(args) -> Observability:
@@ -270,8 +271,7 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default=None, metavar="tp=N",
                     help="shard the megastep tensor-parallel over N "
                          "devices (requires --paged; N must divide the "
-                         "model's KV-head count); validated, then refused: "
-                         "not in the port yet")
+                         "model's KV-head count)")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="enable the flight recorder and export a Chrome "
                          "trace-event JSON here on exit (Perfetto-loadable)")

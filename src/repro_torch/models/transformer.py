@@ -44,8 +44,9 @@ activations are recomputed in the backward, as the reference's
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.utils.checkpoint
@@ -424,30 +425,75 @@ def prefill_chunk_paged(params, pools: Dict, tokens, cache_len: int,
     return _unembed(params, rms_norm(x, params["final_norm"], cfg.norm_eps))
 
 
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """One tensor-parallel shard of the megastep (DESIGN.md §13): ``cfg``
+    with the LOCAL head counts (``n_heads/tp``, ``n_kv_heads/tp``,
+    ``head_dim`` pinned), ``params`` its tree (the attention slices of
+    ``distributed.sharding.shard_serving_params``; every other leaf shared
+    by the shards on one device) and ``pools`` its KV-head slice of the
+    pools, on the shard's device."""
+    cfg: ModelConfig
+    params: Dict
+    pools: Dict[str, torch.Tensor]
+
+
 def mixed_step_paged(params, pools: Dict, tokens, cache_lens, valids,
-                     page_tables, cfg: ModelConfig, poison_mask=None):
+                     page_tables, cfg: ModelConfig, poison_mask=None, *,
+                     shards: Optional[Sequence[Shard]] = None):
     """tokens: (B, C) int32, row b carrying ``valids[b]`` real tokens
     (decode rows: the last sampled token at column 0); cache_lens/valids:
     (B,) int32; page_tables: (B, npages) int32, null-padded; pools: the
     (L, ...) K/V tensors, written in place. Greedy sampling is part of the
     step: only each row's last valid column is unembedded and argmaxed.
     Returns (B,) int32 next ids; a row whose logits are not finite (or is
-    set in ``poison_mask``) returns -1."""
-    x = _embed(params, tokens, cfg)
-    for li, lp in enumerate(params["layers"]):
-        hh = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        x = x + attn_mod.gqa_mixed_step_paged(
-            lp["attn"], hh, pools["k"][li], pools["v"][li], page_tables,
-            cache_lens, valids, cfg)
-        x = x + _mlp(lp, x, cfg)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    rows = torch.arange(x.shape[0], device=x.device)
-    last = torch.clamp(valids.long() - 1, 0, x.shape[1] - 1)
-    logits = _unembed(params, x[rows, last])          # (B, V) f32
+    set in ``poison_mask``) returns -1.
+
+    ``shards`` runs the tensor-parallel megastep (``params`` and ``pools``
+    unused, pass None): per layer, each shard's attention over its own
+    heads and pools gives the local ``o @ wo`` partial, and the partials
+    are summed in shard order 0..tp-1 onto each distinct device, the
+    reference's one ``psum`` per layer. Norms and the MLP or MoE run once
+    per distinct device on the identical residual stream; the first
+    device unembeds and samples. One shard is the single-device step
+    exactly: its "sum" is no op at all."""
+    if shards is None:
+        shards = (Shard(cfg, params, pools),)
+    devs = list(dict.fromkeys(s.pools["k"].device for s in shards))
+    # each device's first shard carries the replicated leaves it reads
+    lead = {dev: next(s.params for s in shards if s.pools["k"].device == dev)
+            for dev in devs}
+    ins = {dev: [t.to(dev) for t in (tokens, cache_lens, valids,
+                                     page_tables)] for dev in devs}
+    x = {dev: _embed(lead[dev], ins[dev][0], cfg) for dev in devs}
+    for li in range(len(lead[devs[0]]["layers"])):
+        hh = {dev: rms_norm(x[dev], lead[dev]["layers"][li]["attn_norm"],
+                            cfg.norm_eps) for dev in devs}
+        parts = []
+        for s in shards:
+            dev = s.pools["k"].device
+            _, lens, vals, tables = ins[dev]
+            parts.append(attn_mod.gqa_mixed_step_paged(
+                s.params["layers"][li]["attn"], hh[dev], s.pools["k"][li],
+                s.pools["v"][li], tables, lens, vals, s.cfg))
+        for dev in devs:
+            a = parts[0].to(dev)
+            if len(parts) > 1:
+                with torch.profiler.record_function("tp.partial_sum"):
+                    for part in parts[1:]:
+                        a = a + part.to(dev)
+            h = x[dev] + a
+            x[dev] = h + _mlp(lead[dev]["layers"][li], h, cfg)
+    dev = devs[0]
+    p, vals = lead[dev], ins[dev][2]
+    h = rms_norm(x[dev], p["final_norm"], cfg.norm_eps)
+    rows = torch.arange(h.shape[0], device=dev)
+    last = torch.clamp(vals.long() - 1, 0, h.shape[1] - 1)
+    logits = _unembed(p, h[rows, last])               # (B, V) f32
     if poison_mask is not None:
         # poison lands after the K/V writes, so only this row's sampled
         # token is affected
-        logits = torch.where(poison_mask[:, None],
+        logits = torch.where(poison_mask.to(dev)[:, None],
                              torch.full_like(logits, float("nan")), logits)
     row_ok = torch.isfinite(logits).all(dim=-1)
     ids = torch.argmax(logits, dim=-1).to(torch.int32)

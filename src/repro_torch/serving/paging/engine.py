@@ -22,8 +22,14 @@ hand-written Hopper kernel. ``megastep=False`` keeps the reference's
 legacy loop as the benchmark baseline: one ``prefill_chunk_paged`` call per
 prefilling sequence plus one batched ``decode_step_paged`` call per step,
 with the full (max_batch, vocab) float32 logits crossing to the host and
-sampled there. The reference's tensor-parallel mesh is a later slice of
-the port and raises ``NotImplementedError`` here.
+sampled there.
+
+``mesh=`` (a ``launch.mesh.make_tp_mesh`` mesh, DESIGN.md §13) makes the
+megastep tensor-parallel: the params are head-permuted and sliced per
+shard (``distributed.sharding.shard_serving_params``), the KV pools split
+over the KV heads, and each step is still ONE ``mixed_step_paged`` call
+(its ``shards``) with one (max_batch,) int32 vector to the host; inside
+it K1 runs once per shard per layer at the local head counts.
 """
 from __future__ import annotations
 
@@ -36,9 +42,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.context.tiers import KVSwapStore
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.distributed.sharding import (TP, shard_serving_params,
+                                              validate_tp)
 from repro_torch.kernels.paged_attention import ops as pa
 from repro_torch.models import build
+from repro_torch.models import transformer as tr
 from repro_torch.models.transformer import check_gqa_family
 from repro_torch.obs import LATENCY_BUCKETS_S, Observability
 from repro_torch.serving.paging.allocator import (NULL_BLOCK,
@@ -128,12 +137,7 @@ class PagedInferenceEngine:
                  obs: Optional[Observability] = None,
                  name: str = "engine",
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (the tensor-parallel megastep) is a later slice of "
-                "the port")
         check_gqa_family(cfg)
-        self.device = resolve_device(device)
         self.cfg = cfg
         # fleet members get distinct names ("engine0", "engine1", ...) so
         # a shared Observability keeps per-engine metric namespaces and
@@ -141,7 +145,32 @@ class PagedInferenceEngine:
         # metric name byte-identical to before
         self.name = name
         self.model = build(cfg)
+        # ---- tensor-parallel mesh (DESIGN.md §13) ------------------------
+        # mesh=None is the single-device engine. With a ("tp",) mesh each
+        # step is still ONE mixed_step_paged call: KV pools split over the
+        # hkv axis, row inputs replicated, the attention partials summed
+        # once per layer. Validation raises ValueError so launchers surface
+        # mesh-shape mistakes as CLI errors. The mesh's devices place the
+        # engine (``device`` is not read then).
+        self.mesh = mesh
         self.tp = 1
+        if mesh is not None:
+            if TP not in dict(mesh.shape):
+                raise ValueError(
+                    f"mesh axes {tuple(mesh.axis_names)} lack the '{TP}' "
+                    "axis the sharded megastep partitions heads over")
+            if not megastep:
+                raise ValueError(
+                    "mesh requires the megastep (megastep=True): the "
+                    "legacy per-sequence dispatch loop is single-device")
+            validate_tp(cfg, mesh.shape[TP])
+            self.tp = mesh.shape[TP]
+            self.device = mesh.devices[0]
+            # head-permute (identity at tp=1) and slice: one param tree
+            # per shard
+            params = shard_serving_params(cfg, mesh, params)
+        else:
+            self.device = resolve_device(device)
         self.params = params
         self.max_batch = max_batch
         self.max_len = min(max_len, (num_blocks - 1) * block_size)
@@ -171,7 +200,7 @@ class PagedInferenceEngine:
         self.first_chunk_cap = (min(self.prefill_chunk, token_budget)
                                 if token_budget else self.prefill_chunk)
         self.cache = PagedKVCache(cfg, num_blocks, block_size,
-                                  device=self.device)
+                                  device=self.device, mesh=mesh)
         # megastep=True (default): ONE mixed_step_paged call per engine
         # iteration. megastep=False keeps the legacy loop (one
         # prefill_chunk_paged call per prefilling sequence plus a
@@ -248,6 +277,14 @@ class PagedInferenceEngine:
         self._ev_step = rec.name(
             "engine.megastep",
             ("C", "rows", "tokens_real", "tokens_dispatched"))
+        # one instant per sharded megastep: mesh shape + per-shard work +
+        # an estimate of what the per-layer sums of the attention partials
+        # moved. Emitted only when tp > 1, so single-device traces are
+        # byte-identical to before.
+        self._tr_coll = rec.track("collectives", group=name)
+        self._ev_psum = rec.name(
+            "collective.psum",
+            ("tp", "psums", "bytes_per_shard", "shard_tokens_dispatched"))
         self._ev_legacy = rec.name("engine.step.legacy",
                                    ("dispatches", "tokens_real"))
         self._ev_row = rec.name("row.work", ("rid", "tokens", "prefill"))
@@ -265,6 +302,25 @@ class PagedInferenceEngine:
         self._ev_abort = rec.name("session.aborted", ("rid",))
         self._ev_finish = rec.name("session.finished",
                                    ("rid", "out_tokens"))
+        self._mega = self._build_mega()
+
+    def _build_mega(self):
+        """The one call per iteration: ``(toks, lens, valids, tables,
+        poison) -> (max_batch,) int32 ids``, ``mixed_step_paged`` over the
+        shards (one without a mesh), each with its local cfg (head counts
+        divided by tp, ``head_dim`` pinned: a config that leaves it 0
+        derives d_model // n_heads, which would silently grow as the local
+        head count shrinks), its param tree and its pools."""
+        cfg = self.cfg
+        lcfg = cfg.replace(n_heads=cfg.n_heads // self.tp,
+                           n_kv_heads=cfg.n_kv_heads // self.tp,
+                           head_dim=cfg.resolved_head_dim)
+        trees = self.params if self.mesh is not None else [self.params]
+        shards = [tr.Shard(lcfg, p, pools)
+                  for p, pools in zip(trees, self.cache.pools())]
+        return lambda toks, lens, valids, tables, poison=None: \
+            tr.mixed_step_paged(None, None, toks, lens, valids, tables, cfg,
+                                poison, shards=shards)
 
     # ----------------------------------------------------------- public
     def compile_buckets(self):
@@ -274,8 +330,9 @@ class PagedInferenceEngine:
         discarded, so live state is untouched, and serving never pays a
         kernel build mid-traffic. Idempotent; recorded in
         ``compiled_buckets``, not in ``trace_buckets`` (which counts only
-        widths live traffic dispatched). A no-op for the legacy loop, as in
-        the reference: its kernels build at first use."""
+        widths live traffic dispatched). Under a mesh every shard writes
+        only its null block. A no-op for the legacy loop, as in the
+        reference: its kernels build at first use."""
         if not self.use_megastep:
             return
         if self.device.type == "cuda":
@@ -286,8 +343,7 @@ class PagedInferenceEngine:
                             dtype=torch.int32, device=self.device)
         for C in self.bucket_set:
             toks = torch.zeros((B, C), dtype=torch.int32, device=self.device)
-            self.model.mixed_step_paged(self.params, self.cache.pools(),
-                                        toks, zeros, zeros, tables)
+            self._mega(toks, zeros, zeros, tables)
             self.compiled_buckets.add(C)
         self.sync()
 
@@ -915,8 +971,7 @@ class PagedInferenceEngine:
             if req.rid in self._poison_rids:
                 poison[s] = True
         dev = self.device
-        next_tok = self.model.mixed_step_paged(
-            self.params, self.cache.pools(),
+        next_tok = self._mega(
             torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev),
             torch.from_numpy(valids).to(dev),
             torch.from_numpy(tables).to(dev),
@@ -967,6 +1022,15 @@ class PagedInferenceEngine:
         if tracing:
             rec.complete(self._ev_step, self._tr_step, t0, C, len(rows),
                          step_real, self.max_batch * C)
+            if self.tp > 1:
+                # what this step's reductions moved, per shard: one
+                # (B, C, d) attention partial per layer
+                itemsize = torch_dtype(self.cfg.compute_dtype).itemsize
+                psum_bytes = (self.cfg.n_layers * self.max_batch * C
+                              * self.cfg.d_model * itemsize)
+                rec.instant(self._ev_psum, self._tr_coll, self.tp,
+                            self.cfg.n_layers, psum_bytes,
+                            self.max_batch * C)
         return finished
 
     def _step_legacy(self, t0: float = 0.0) -> List[PagedRequest]:
@@ -993,7 +1057,7 @@ class PagedInferenceEngine:
             row = np.asarray(req.table.padded(self.max_pages), np.int32)
             tc0 = time.perf_counter() if rec.enabled else 0.0
             logits = self.model.prefill_chunk_paged(
-                self.params, self.cache.pools(),
+                self.params, self.cache.pools()[0],
                 torch.from_numpy(buf).to(dev), n, T,
                 torch.from_numpy(row).to(dev))
             self.jit_dispatches += 1
@@ -1030,7 +1094,7 @@ class PagedInferenceEngine:
                 tables[req.slot] = req.table.padded(self.max_pages)
                 toks[req.slot, 0] = req.last_tok
             logits = self.model.decode_step_paged(
-                self.params, self.cache.pools(),
+                self.params, self.cache.pools()[0],
                 torch.from_numpy(toks).to(dev),
                 torch.from_numpy(lens).to(dev),
                 torch.from_numpy(tables).to(dev))

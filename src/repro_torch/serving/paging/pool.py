@@ -6,6 +6,14 @@ sequence maps its positions for the whole stack. The BlockAllocator
 decides *which* block; this class moves the bytes: copy-on-write
 duplication and the host<->device page transfers the swap tier is built on.
 
+Under a tensor-parallel mesh (``mesh=``, DESIGN.md §13) each shard holds
+its own ``(L, num_blocks, blk, hkv/tp, hd)`` pools on its device: the
+KV-head slice ``[i*hkv/tp, (i+1)*hkv/tp)``. Block ids, page tables and the
+prefix index are shard-invariant, and every byte-moving method acts on
+every shard. Host pages stay full-hkv (the shards' slices concatenated in
+kv-head order), so hibernation, the journal, the disk tier and migration
+do not see the mesh's shape.
+
 The pools are device tensors updated in place (``index_put_``) where the
 reference donates and replaces its buffers. Host pages keep the reference's
 ``(L, pages, blk, hkv, hd)`` layout; a bf16 pool's pages travel as their raw
@@ -42,17 +50,24 @@ class PagedKVCache:
     """Pooled paged KV storage for the decoder-only GQA family."""
 
     def __init__(self, cfg: ModelConfig, num_blocks: int, block_size: int,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.cfg = cfg
         self.num_blocks = num_blocks
         self.block_size = block_size
-        pools = tr.init_paged_pools(cfg, num_blocks, block_size, device)
-        self.k: torch.Tensor = pools["k"]
-        self.v: torch.Tensor = pools["v"]
-        self.device = self.k.device
+        devices = mesh.devices if mesh is not None else (device,)
+        tp = len(devices)
+        lcfg = cfg.replace(n_kv_heads=cfg.n_kv_heads // tp,
+                           head_dim=cfg.resolved_head_dim)
+        # one {"k", "v"} per shard, shard i holding kv heads
+        # [i*hkv/tp, (i+1)*hkv/tp)
+        self.shards: List[Dict[str, torch.Tensor]] = [
+            tr.init_paged_pools(lcfg, num_blocks, block_size, dev)
+            for dev in devices]
+        self.device = self.shards[0]["k"].device
         self.allocator = BlockAllocator(num_blocks)
-        L, _, blk, hkv, hd = self.k.shape
-        self.block_bytes = 2 * L * blk * hkv * hd * self.k.element_size()
+        L, _, blk, hkv, hd = self.shards[0]["k"].shape
+        self.block_bytes = (2 * L * blk * hkv * tp * hd
+                            * self.shards[0]["k"].element_size())
         # ---- prompt-prefix dedup index -----------------------------------
         # key = the raw bytes of a block-aligned prompt prefix; value = the
         # block id holding that prefix's *last* block. Entries are dropped
@@ -66,9 +81,19 @@ class PagedKVCache:
         self.prompt_blocks_fresh = 0
 
     # ------------------------------------------------------------- pools
-    def pools(self) -> Dict[str, torch.Tensor]:
-        """The pool tensors the megastep writes in place."""
-        return {"k": self.k, "v": self.v}
+    def pools(self) -> List[Dict[str, torch.Tensor]]:
+        """Each shard's pool tensors, which the megastep writes in place
+        (one entry without a mesh)."""
+        return self.shards
+
+    def full_pools(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The whole K and V pools, (L, num_blocks, blk, hkv, hd): without
+        a mesh the live tensors themselves, under one a copy that joins the
+        shards' slices in kv-head order on the first shard's device."""
+        if len(self.shards) == 1:
+            return self.shards[0]["k"], self.shards[0]["v"]
+        return tuple(torch.cat([s[n].to(self.device) for s in self.shards],
+                               dim=3) for n in ("k", "v"))
 
     # ------------------------------------------------------------- sizes
     def pages_for(self, n_tokens: int) -> int:
@@ -185,28 +210,32 @@ class PagedKVCache:
         if not self.allocator.is_shared(bid):
             return
         new = self.allocator.alloc()
-        self.k[:, new] = self.k[:, bid]
-        self.v[:, new] = self.v[:, bid]
+        for shard in self.shards:
+            for pool in shard.values():
+                pool[:, new] = pool[:, bid]
         self._release_block(bid)
         pt.blocks[page_idx] = new
 
     def _put_pages(self, bids: np.ndarray, k_pages, v_pages):
-        """In-place bulk page write. The page axis is padded to a power of
+        """In-place bulk page write of full-hkv host pages, each shard
+        taking its kv-head slice. The page axis is padded to a power of
         two, padding rows (zeros) aimed at the null block."""
         pages = len(bids)
         width = _pow2_pad(max(pages, 1))
         row = np.full((width,), NULL_BLOCK, np.int64)
         row[:pages] = bids
-        idx = torch.from_numpy(row).to(self.device)
-        for pool, host in ((self.k, k_pages), (self.v, v_pages)):
-            src = numpy_to_torch(host).to(device=self.device,
-                                          dtype=pool.dtype)
+        for name, host in (("k", k_pages), ("v", v_pages)):
+            full = numpy_to_torch(host)
             if width != pages:
-                pad = torch.zeros((src.shape[0], width - pages,
-                                   *src.shape[2:]), dtype=src.dtype,
-                                  device=self.device)
-                src = torch.cat([src, pad], dim=1)
-            pool[:, idx] = src
+                pad = torch.zeros((full.shape[0], width - pages,
+                                   *full.shape[2:]), dtype=full.dtype)
+                full = torch.cat([full, pad], dim=1)
+            for i, shard in enumerate(self.shards):
+                pool = shard[name]
+                hl = pool.shape[3]
+                pool[:, torch.from_numpy(row).to(pool.device)] = \
+                    full[:, :, :, i * hl:(i + 1) * hl].to(
+                        device=pool.device, dtype=pool.dtype)
 
     # ------------------------------------------------- swap (host pages)
     def gather(self, pt: PageTable) -> Tuple[np.ndarray, np.ndarray]:
@@ -219,9 +248,14 @@ class PagedKVCache:
         """Copy pages [lo, hi) of a sequence to host memory (full pages of
         a live session are content-frozen, so they can stream while it
         decodes)."""
-        idx = torch.as_tensor(pt.blocks[lo:hi], dtype=torch.long,
-                              device=self.device)
-        return torch_to_numpy(self.k[:, idx]), torch_to_numpy(self.v[:, idx])
+        def pages(name):
+            parts = [s[name][:, torch.as_tensor(pt.blocks[lo:hi],
+                                                dtype=torch.long,
+                                                device=s[name].device)]
+                     for s in self.shards]
+            return torch_to_numpy(parts[0] if len(parts) == 1 else
+                                  torch.cat([p.cpu() for p in parts], dim=3))
+        return pages("k"), pages("v")
 
     def scatter(self, k_pages: np.ndarray, v_pages: np.ndarray,
                 num_tokens: int) -> PageTable:

@@ -14,6 +14,7 @@ from repro.configs import get_smoke_config as jax_smoke
 from repro.models import build
 from repro.serving import PagedInferenceEngine as JaxEngine
 from repro_torch.configs import get_smoke_config
+from repro_torch.launch.mesh import make_tp_mesh
 from repro_torch.serving import PagedInferenceEngine, budget_buckets
 from repro_torch.serving.paging import engine as teng
 from repro_torch.weights import params_from_jax
@@ -150,8 +151,15 @@ def test_budget_validation_and_later_slices(gemma):
         _port(gemma, token_budget=2)        # below max_batch
     legacy = _port(gemma, megastep=False)   # the legacy loop is ported now
     assert not legacy.use_megastep
-    with pytest.raises(NotImplementedError):
-        _port(gemma, mesh=object())
+    # the tensor-parallel mesh is ported: its refusals are the reference's
+    # (gemma-2b smoke is MQA, so no tp above 1 divides its KV heads)
+    mesh = make_tp_mesh(2, devices=["cpu"] * 2)
+    for kw in (dict(mesh=mesh), dict(mesh=mesh, megastep=False)):
+        with pytest.raises(ValueError) as want:
+            JaxEngine(gemma[0], gemma[1], **{**KW, **kw})
+        with pytest.raises(ValueError) as got:
+            _port(gemma, **kw)
+        assert str(got.value) == str(want.value)
     assert teng._MIN_CHUNK_BUCKET == 8
 
 

@@ -5,15 +5,16 @@
 says bf16: the journal restore across differing engines, live migration
 (sudden and fluid, and a fluid one interrupted), engine-loss failover, the
 rebalance hook, victim selection, graceful drain, the disk tier below the
-host-RAM swap store, and the fleet fault kinds. The reference's
-TP2-to-TP4 failover needs a tensor-parallel mesh, which the port does not
-have yet.
+host-RAM swap store, the fleet fault kinds, and the reference's TP2-to-TP4
+failover: a session journaled under a tp 2 mesh restores on a tp 4
+survivor (``tests/test_torch_sharded.py``'s model and schedule).
 
 A mixed fleet holds one JAX member and one port member with converted
 weights: a session moves each way, suddenly between turns and fluidly
 mid-decode, and its tokens equal a JAX-only engine's. The port's
 ``reshard_params`` and ``elastic_restore`` place a tree on one device
-and raise on a mesh of several until the port has tensor parallelism."""
+and raise on a mesh of several: that placement takes the training rules,
+a later slice of the port."""
 import jax
 import numpy as np
 import pytest
@@ -403,6 +404,41 @@ def test_disk_tier_behind_engine_hibernate_wake_bit_exact(
     assert _release_all(eng) == 0
 
 
+# --------------------------------------- failover across mesh shapes
+
+def test_engine_loss_journal_restore_tp2_to_tp4_bit_exact(tmp_path):
+    """``test_fleet.py``'s failover beyond tp 1: a session journaled by a
+    tp 2 engine restores exactly on a tp 4 survivor. Journal payloads are
+    full-hkv host pages joined from the shards' pools, so a restore does
+    not see the mesh's shape; the oracle is the reference's single-device
+    engine."""
+    from test_torch_sharded import (ENGINE_KW, EXTEND, PROMPT, cpu_mesh,
+                                    driver_setup)
+    cfg, params, ref_toks = driver_setup()
+
+    def engine(tp):
+        return PagedInferenceEngine(cfg, params, mesh=cpu_mesh(tp),
+                                    device="cpu", **ENGINE_KW)
+
+    journal = SessionJournal(str(tmp_path / "tpj"))
+    a = engine(2)
+    rid = a.submit(PROMPT, max_new_tokens=8, retain=True)
+    a.run_to_completion()
+    turn1 = [int(t) for t in a.reqs[rid].out_tokens]
+    payload = a.export_session(rid)
+    if payload is None:             # only coherent between turns: park first
+        a.park(rid)
+        payload = a.export_session(rid)
+    journal.commit("agent-x", payload)
+    del a                           # the tp 2 engine dies with its pages
+    b = engine(4)
+    rid2 = b.restore_session(journal.load("agent-x"))
+    b.extend(rid2, EXTEND, max_new_tokens=8)
+    b.run_to_completion()
+    assert turn1 == ref_toks[:8]
+    assert [int(t) for t in b.reqs[rid2].out_tokens] == ref_toks[8:]
+
+
 # ------------------------------------------------- fault-plan contract
 
 def test_fleet_fault_kinds_deterministic_and_noop_on_single_engine(setup):
@@ -498,8 +534,9 @@ def test_mixed_fleet_fluid_migration_bit_exact(src, setup):
 
 def test_remesh_helpers_raise_until_the_port_has_a_mesh(setup):
     """A single-device target is a move (the checkpointer's restore is
-    tests/test_torch_checkpoint.py's); a mesh of several devices raises
-    until the port has tensor parallelism."""
+    tests/test_torch_checkpoint.py's); a mesh of several devices raises:
+    re-placing a tree there takes the training rules, which the port does
+    not have yet (the serving mesh has its own rules)."""
     cfg, params = setup[:2]
     assert reshard_params is sharding.reshard_params
     assert elastic_restore is sharding.elastic_restore

@@ -192,7 +192,10 @@ def test_cuda_kernel_at_the_paths_shapes(cuda, b, C, npages, pairing):
 
 # (hq, hkv): llama4-scout's heads (g = 5) and starcoder2-7b's (g = 9), whose
 # M tiles hold a chunk position's heads across a tile boundary, at d 128
-ODD_GROUPS = [(40, 8), (36, 4)]
+ODD_GROUPS = [(40, 8), (36, 4),
+              # starcoder2-7b's heads per shard of the tensor-parallel
+              # megastep: tp 2 and tp 4
+              (18, 2), (9, 1)]
 
 
 @pytest.mark.gpu
@@ -670,3 +673,45 @@ def test_gradients_reach_before_the_kernels(cuda, arch, leaf):
     assert g.shape[0] == cfg.n_layers
     for layer in g:
         assert torch.isfinite(layer).all() and layer.abs().max() > 0
+
+
+@pytest.mark.gpu
+def test_tp_megastep_on_the_card(cuda):
+    """The tensor-parallel megastep, every shard on the card, bf16: tp 1
+    equals the mesh-less megastep bit for bit (tokens and pools, the null
+    block excluded); tp 2 launches K1 once per shard per layer and
+    serves the same schedule to the end."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_tp_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import PagedInferenceEngine
+    cfg = get_smoke_config("gemma-2b").replace(
+        remat=False, n_layers=2, d_model=64, n_heads=8, n_kv_heads=4,
+        head_dim=16, d_ff=128, vocab_size=256)
+    params = init_params(cfg, seed=0, device=cuda)
+    kw = dict(num_blocks=65, block_size=8, max_batch=4, max_len=96,
+              prefill_chunk=16, token_budget=16)
+
+    def run(tp):
+        mesh = make_tp_mesh(tp, devices=[cuda] * tp) if tp else None
+        eng = PagedInferenceEngine(cfg, params, mesh=mesh, device=cuda,
+                                   **kw)
+        eng.compile_buckets()
+        before = ops.paged_prefill_attention.launches
+        rid = eng.submit(np.arange(1, 20), max_new_tokens=8, retain=True)
+        eng.run_to_completion()
+        eng.extend(rid, np.arange(30, 38), max_new_tokens=8)
+        eng.run_to_completion()
+        eng.sync()
+        launches = ops.paged_prefill_attention.launches - before
+        assert launches == cfg.n_layers * max(tp, 1) * eng.steps_dispatched
+        assert eng.jit_dispatches_per_step == 1.0
+        return eng, list(eng.reqs[rid].out_tokens)
+
+    base, want = run(0)
+    one, got = run(1)
+    assert got == want
+    for a, b in zip(one.cache.full_pools(), base.cache.full_pools()):
+        assert torch.equal(a[:, 1:], b[:, 1:])
+    two, toks = run(2)
+    assert len(toks) == 8 and min(toks) >= 0

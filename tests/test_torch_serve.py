@@ -7,8 +7,8 @@ the CPU (``--smoke --device cpu``) with a journal, a disk tier, tracing
 and a metrics dump, with a fleet and a kill or a drain, with the
 autopilot, and on the dense engine; both CLIs' ``build_backend`` under
 their AgentRM give equal outputs for the same converted weights at
-float32; and a valid ``--mesh`` exits, as tensor-parallel serving is not
-in the port yet."""
+float32; and ``--mesh tp=1`` serves as the run without a mesh, while a
+mesh wider than the host's devices exits with the reference's message."""
 import argparse
 import json
 import re
@@ -16,6 +16,7 @@ import re
 import jax
 import numpy as np
 import pytest
+import torch
 
 import repro.core
 from repro.configs import get_smoke_config as jax_smoke
@@ -98,18 +99,42 @@ def test_mesh_spec_and_build_mesh_errors_equal_reference():
     assert serve.build_mesh(cfg, argparse.Namespace(paged=True)) is None
 
 
-def test_valid_mesh_exits_as_not_ported():
-    with pytest.raises(SystemExit, match="not in the port yet"):
-        serve.main(BASE + PORT + ["--paged", "--mesh", "tp=1"])
-    with pytest.raises(SystemExit, match="tensor-parallel"):
-        serve.build_mesh(get_smoke_config("gemma-2b"),
-                         argparse.Namespace(mesh="tp=1", paged=True))
+def test_valid_mesh_exits_as_not_ported(capsys):
+    """Named for what the port once did: a valid ``--mesh`` now serves.
+    ``--mesh tp=1`` on the CPU (one device) gives the mesh-less run's
+    turns, token for token; ``tp=2`` there exits with the reference's
+    message up to its hint (the reference's names XLA's forced host
+    devices, the port's ``make_tp_mesh(devices=...)``)."""
+    argv = BASE + PORT + ["--paged", "--agents", "2", "--turns", "4"]
+    assert serve.main(argv) == 0
+    plain = _served_lines(capsys.readouterr().out)
+    assert serve.main(argv + ["--mesh", "tp=1"]) == 0
+    out = capsys.readouterr().out
+    assert len(plain) == 4 and _served_lines(out) == plain
+    assert "tp=1," in out
+    sc2 = ["--arch", "starcoder2-7b", "--smoke", "--paged", "--mesh", "tp=2"]
+    with pytest.raises(SystemExit) as want:
+        ref_serve.main(sc2)
+    with pytest.raises(SystemExit) as got:
+        serve.main(sc2 + PORT)
+    assert want.value.code.startswith(
+        "invalid --mesh: tp=2 exceeds the 1 visible device(s);")
+    assert got.value.code.split(";")[0] == want.value.code.split(";")[0]
+    mesh = serve.build_mesh(get_smoke_config("gemma-2b"), argparse.Namespace(
+        mesh="tp=1", paged=True, device="cpu"))
+    assert mesh.shape == {"tp": 1} and mesh.devices == (torch.device("cpu"),)
 
 
 # ------------------------------------------------------ end-to-end runs
 
 def _served(out: str) -> list:
     return re.findall(r"^\[serve\] agent-\d+ -> tok:", out, re.M)
+
+
+def _served_lines(out: str) -> list:
+    """Each served turn's agent and tokens (its latency cut), sorted."""
+    return sorted(re.findall(r"^(\[serve\] agent-\d+ -> tok:\S*)", out,
+                             re.M))
 
 
 def _dispatches(out: str):
