@@ -170,6 +170,26 @@ Phases, each printing one JSON line (several for the kernel cases):
               equal bit for bit, K5 launched 2 x 48 a step. Then at depth
               2, one gradient each: wq/wk/wv and the Mamba block's in_proj
               get a finite non-zero gradient in every layer.
+18. dryrun  — ``repro_torch.launch.dryrun`` against the card: (a) every
+              ``iter_cells`` cell on the 16x16 and 2x16x16 production
+              meshes on meta (64 ok, 16 skipped with the reference's
+              reason; cells under build/dryrun/cells/); in a fresh
+              process (``--dryrun-memory``: no free blocks of earlier
+              phases in the allocator's cache), (b) gemma-2b on
+              the 1 x 1 local mesh: the sizing's bytes of the f32 master
+              params, the AdamW state and the bf16 decode state of
+              decode_32k cut to 32 rows against the card's allocations,
+              exactly (each tensor rounded to the allocator's 512 B);
+              (c) the same decode step (K4) and a prefill of 1 x 8192
+              (K3) on the card and on meta: the work counts (aten
+              operations plus ``kernels/work.py``'s) and the bytes
+              materialized (K4's workspace included) equal, 18 launches
+              each; (d) a gemma-2b f32 checkpoint the port wrote, restored
+              onto a 2 x 2 mesh whose positions are the one card: joined,
+              the saved bits, each slice as ``param_pspec`` says, the
+              allocated bytes the sizing's; (e) ``write_prefill`` /
+              ``gather`` / ``scatter`` / ``set_pools`` on starcoder2-7b
+              pools at full width, tp 1 and 2: the bits, a zero tail.
 
 Every kernel's launch count is set to 0 just before a path is driven and
 read just after; launches made to compare a kernel with its plain version
@@ -395,20 +415,20 @@ def _paged_case(torch, dtype, C, hkv, seed, *, b=8, hq=8, d=256, blk=16,
 def _prefill_bound(q, k, v, lens, vals, pt, dname) -> dict:
     """K1: q read, the K/V pages holding a key some query sees, out
     written, the row scalars and tables; 2*(d+dv) operations per visible
-    key and query head."""
+    key and query head (``work.k1_flops``, the count the wrapper adds)."""
+    from repro_torch.kernels import work
     b, C, hq, d = q.shape
     blk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     es = q.element_size()
     nbytes = (q.numel() + b * C * hq * dv) * es
     nbytes += (lens.numel() + vals.numel() + pt.numel()) * 4
-    flops = 0
-    for r in range(b):
-        off, kv_len = int(lens[r]), max(int(lens[r]) + int(vals[r]), 1)
+    cache, valids = lens.tolist(), vals.tolist()
+    for off, val in zip(cache, valids):
+        kv_len = max(off + val, 1)
         hi = min(kv_len, off + C)            # last position any query sees
         pages = min(pt.shape[1], -(-hi // blk))
         nbytes += pages * blk * hkv * (d + dv) * es
-        for i in range(C):
-            flops += min(off + i + 1, kv_len) * hq * 2 * (d + dv)
+    flops = work.k1_flops(cache, valids, C, hq, d, dv)
     return _bound(nbytes, flops, dname)
 
 
@@ -501,6 +521,7 @@ def k2_cases(torch, flush):
     """K2 at the legacy loop's decode shape: b=8 rows, lengths from 1 to
     ~900 tokens over shuffled pages."""
     import torch.nn.functional as F
+    from repro_torch.kernels import work
     from repro_torch.kernels.paged_attention import ops, ref
     rows = []
     for n, (dtype, hkv) in enumerate([(torch.bfloat16, 1), (torch.float32, 1),
@@ -518,11 +539,9 @@ def k2_cases(torch, flush):
         ks, vs = _tile_heads(kg, g), _tile_heads(vg, g)
         es = q.element_size()
         nbytes = (q.numel() + b * hq * dv) * es + (b + pt.numel()) * 4
-        flops = 0
-        for r in range(b):
-            L = int(lens[r])
+        for L in lens.tolist():
             nbytes += -(-L // blk) * blk * hkv * (d + dv) * es
-            flops += L * hq * 2 * (d + dv)
+        flops = work.k2_flops(lens.tolist(), hq, d, dv)
         plan = ops.kernel_plan(q, k, v, pt)
         out = _repeat_check(torch, f"K2 hkv={hkv} {dname}",
                             lambda: ops.paged_attention(q, k, v, lens, pt,
@@ -558,6 +577,7 @@ def k3_cases(torch, flush):
     32, hkv 8, d 128) and deepseek-v2-lite's MLA ``forward`` (2 rows of
     512, 16 heads, d 192, dv 128)."""
     import torch.nn.functional as F
+    from repro_torch.kernels import work
     from repro_torch.kernels.flash_attention import ops, ref
     rows = []
     cases = [(dt, 1, sq, 8, 1, 256, 256) for dt in
@@ -583,8 +603,7 @@ def k3_cases(torch, flush):
         ks, vs = _tile_heads(k, hq // hkv), _tile_heads(v, hq // hkv)
         es = q.element_size()
         nbytes = (q.numel() + k.numel() + v.numel() + b * sq * hq * dv) * es
-        pairs = sq * (sq + 1) // 2 if causal else sq * skv
-        flops = b * pairs * hq * 2 * (d + dv)
+        flops = work.k3_flops(b, sq, skv, hq, d, dv, causal)
         row = measure(
             torch, flush, "K3", {"b": b, "sq": sq, "skv": skv, "hq": hq,
                                  "hkv": hkv, "d": d, "dv": dv,
@@ -618,6 +637,7 @@ def k4_cases(torch, flush):
     hkv 8, d 128, 2 rows of a 656-position cache: 576 + 64 + 16, a scalar
     length)."""
     import torch.nn.functional as F
+    from repro_torch.kernels import work
     from repro_torch.kernels.decode_attention import ops, ref
     rows = []
     gemma, ring = (4, 1024, 8, 1, 256), (1, 1024, 32, 32, 112)
@@ -643,7 +663,7 @@ def k4_cases(torch, flush):
         es = q.element_size()
         nbytes = (q.numel() + b * hq * d) * es + b * 4
         nbytes += sum(lens) * hkv * 2 * d * es
-        flops = sum(lens) * hq * 2 * 2 * d
+        flops = work.k4_flops(lens, hq, d, d)
         split, n_split = ops.kernel_plan(q, k, v)
         row = measure(
             torch, flush, "K4", {"b": b, "S": S, "hq": hq, "hkv": hkv,
@@ -676,14 +696,12 @@ def _ssd_bound(b, s, h, p, g, n, L, es, init, dname) -> dict:
     the initial state (if any) and the final state in float32; operations:
     C.B^T over the causal half once per (row, group, chunk), and per head
     M @ x over that half, C @ S, the state update, and the three products
-    that make each entry of M."""
-    nc = s // L
-    half = L * (L + 1) // 2
+    that make each entry of M (``work.k5_flops``, the count the wrapper
+    adds)."""
+    from repro_torch.kernels import work
     nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * es
     nbytes += (b * s * h + h + (2 if init else 1) * b * h * n * p) * 4
-    flops = b * nc * g * half * 2 * n
-    flops += b * nc * h * (half * (2 * p + 3) + 2 * 2 * L * n * p)
-    return _bound(nbytes, flops, dname)
+    return _bound(nbytes, work.k5_flops(b, s, h, p, g, n, L), dname)
 
 
 def ssd_cases(torch, flush):
@@ -2893,6 +2911,358 @@ def train_phase(torch, seed: int) -> dict:
     return {"launches": launches, **out}
 
 
+# -------------------------------------------------------------- dry-run
+
+DRYRUN_DIR = ROOT / "build" / "dryrun"      # the cells, the checkpoint
+ALLOC_GRANULE = 512         # the caching allocator rounds each block up
+# gemma-2b's cells against the card, cut to its memory: decode_32k's global
+# batch from 128, prefill_32k to one row of this length
+DRYRUN_DECODE_BATCH = 32
+DRYRUN_PREFILL_LEN = 8192
+DRYRUN_REDUCED = {
+    "decode_32k": {"global_batch": [128, DRYRUN_DECODE_BATCH]},
+    "prefill_32k": {"global_batch": [32, 1],
+                    "seq_len": [32768, DRYRUN_PREFILL_LEN]}}
+
+
+def _alloc(sizes) -> int:
+    """What the caching allocator holds for tensors of these byte sizes:
+    each rounded up to ``ALLOC_GRANULE``."""
+    return sum(-(-n // ALLOC_GRANULE) * ALLOC_GRANULE for n in sizes)
+
+
+def _allocated(torch, fn):
+    """(fn's result, the card's allocated bytes it left behind)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.memory_allocated() - before
+
+
+def _sweep(torch) -> dict:
+    """(a) every ``iter_cells`` cell on both production meshes, on meta:
+    each cell's JSON under build/dryrun/cells/, a failed cell fails the
+    phase."""
+    from repro_torch.configs import iter_cells
+    from repro_torch.launch import dryrun
+    out_dir = DRYRUN_DIR / "cells"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    counts = {"ok": 0, "failed": 0, "skipped": 0}
+    failed, skipped, cells = [], {}, {}
+    for arch, shape, ok, why in iter_cells():
+        for multi in (False, True):
+            tag = f"{arch}__{shape.name}__{'multi' if multi else 'single'}"
+            if not ok:
+                counts["skipped"] += 1
+                skipped[tag] = why
+                continue
+            try:
+                cell = dryrun.run_cell(arch, shape.name, multi)
+            except Exception as e:  # noqa: BLE001 — report, then fail
+                counts["failed"] += 1
+                failed.append(f"{tag}: {type(e).__name__}: {e}")
+                continue
+            counts["ok"] += 1
+            (out_dir / f"{tag}.json").write_text(json.dumps(cell, indent=1))
+            cells[tag] = {"flops_per_device": cell["hlo_flops_per_device"],
+                          "args_bytes_per_device":
+                              cell["memory"]["argument_size_in_bytes"],
+                          "kernel_calls": cell["kernel_calls"],
+                          "trace_s": cell["trace_s"]}
+    emit({"phase": "dryrun_sweep", **counts, "failed_cells": failed,
+          "skip_reasons": sorted(set(skipped.values())), "cells": cells})
+    if failed:
+        raise AssertionError(f"dryrun: {len(failed)} cells failed: "
+                             f"{failed[:3]}")
+    return {**counts, "skipped_cells": sorted(skipped)}
+
+
+def _bytes_on_card(torch, cfg, seed: int, batch: int, seq: int):
+    """(b) gemma-2b on the 1 x 1 local mesh of the card: the sizing's
+    per-device bytes of the f32 master params, the AdamW state and the
+    bf16 decode state of ``batch`` x ``seq`` against what the card
+    allocates for each (each leaf rounded up to the allocator's granule).
+    Returns the row."""
+    from repro_torch.distributed.sharding import (decode_state_shardings,
+                                                  opt_state_shardings,
+                                                  param_shardings)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build
+    from repro_torch.training import optimizer as opt
+    mesh = make_local_mesh("cuda")
+    model = build(cfg)
+    p_abs = dryrun.abstract_params(cfg)
+    o_abs = opt.init(p_abs, opt.AdamWConfig())
+    s_abs = dryrun.abstract_decode_state(cfg, batch, seq)
+    predicted = {
+        "params": dryrun.leaf_bytes(p_abs, param_shardings(cfg, mesh,
+                                                           p_abs)),
+        "opt_state": dryrun.leaf_bytes(o_abs, opt_state_shardings(
+            cfg, mesh, o_abs, p_abs)),
+        "decode_state": dryrun.leaf_bytes(s_abs, decode_state_shardings(
+            cfg, mesh, s_abs))}
+    params, got_p = _allocated(torch, lambda: model.init_train_params(
+        seed=seed, device="cuda"))
+    state, got_o = _allocated(torch, lambda: opt.init(
+        params, opt.AdamWConfig()))
+    del params, state
+    _free()
+    dstate, got_s = _allocated(torch, lambda: model.init_decode_state(
+        batch, seq, device="cuda"))
+    del dstate
+    row = {"mesh": dict(mesh.shape), "decode_batch": batch,
+           "decode_seq": seq}
+    for name, got in (("params", got_p), ("opt_state", got_o),
+                      ("decode_state", got_s)):
+        sizes = predicted[name]
+        row[name] = {"predicted_bytes": sum(sizes),
+                     "predicted_allocated": _alloc(sizes),
+                     "allocated_delta": got}
+        if got != _alloc(sizes):
+            raise AssertionError(f"dryrun bytes {name}: the card allocated "
+                                 f"{got}, the sizing predicts "
+                                 f"{_alloc(sizes)} ({sum(sizes)} before "
+                                 "the allocator's rounding)")
+    return row
+
+
+def _work_on_card(torch, cfg, seed: int, batch: int, seq: int,
+                  prefill_len: int) -> dict:
+    """(c) the same step on the card and on meta under ``analyze_step``:
+    gemma-2b's decode step at the cut decode_32k (K4) and a prefill of 1 x
+    ``prefill_len`` (K3, float32 logits over the vocabulary); the work
+    counts (aten operations plus the kernels') and the bytes materialized
+    (the kernels' workspaces included) must be equal, and the card's
+    kernel launches equal the meta step's kernel calls."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import analyze_step
+    from repro_torch.models import build
+    from repro_torch.training.train_step import make_serve_steps
+    prefill_step, decode_step = make_serve_steps(cfg)
+    model = build(cfg)
+    dstate = model.init_decode_state(batch, seq, device="cuda")
+    params = model.init_params(generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    meta_params = model.init_params(device="meta")
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    token = torch.randint(0, cfg.vocab_size, (batch, 1), generator=g,
+                          device="cuda", dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (1, prefill_len), generator=g,
+                         device="cuda", dtype=torch.int32)
+    steps = [
+        ("decode", decode_step, [params, dstate, token, seq - 1],
+         (meta_params, dryrun.abstract_decode_state(cfg, batch, seq),
+          token.to("meta"), seq - 1), "K4"),
+        ("prefill", prefill_step, [params, {"tokens": toks}],
+         (meta_params, {"tokens": toks.to("meta")}), "K3")]
+    del dstate
+    row = {}
+    while steps:
+        name, fn, card_args, meta_args, kernel = steps.pop(0)
+        reset_counts()
+        t0 = time.perf_counter()
+        out, card = analyze_step(fn, *card_args)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = read_counts()
+        if not torch.isfinite(out.float()).all():
+            raise AssertionError(f"dryrun work {name}: non-finite logits")
+        del out
+        _, meta = analyze_step(fn, *meta_args)
+        keys = ("dot_flops", "aten_flops", "kernel_flops", "kernel_calls",
+                "bytes_materialized")
+        same = {k: card[k] == meta[k] for k in keys}
+        row[name] = {"card": card, "meta": meta, "launches": launches,
+                     "equal": same, "card_s": card_s}
+        if not all(same.values()):
+            raise AssertionError(f"dryrun work {name}: card {card} vs "
+                                 f"meta {meta}")
+        _expect(f"dryrun work {name}", launches,
+                {kernel: cfg.n_layers})
+        if launches[kernel] != card["kernel_calls"][kernel]:
+            raise AssertionError(f"dryrun work {name}: {launches} launches "
+                                 f"vs {card['kernel_calls']} counted")
+        emit({"phase": "dryrun_work", "step": name, **row[name]})
+        del card_args          # the decode state, before the prefill's logits
+        _free()
+    del params
+    return row
+
+
+def _restore_on_card(torch, cfg, seed: int) -> dict:
+    """(d) a gemma-2b f32 checkpoint written by the port, restored onto a
+    2 x 2 ("data", "model") mesh whose four positions are the one card:
+    joined, it equals the saved bits; each slice's shape follows
+    ``param_pspec``; the allocated bytes equal the sizing's distinct
+    (device, slice) pieces."""
+    import shutil
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build
+    from repro_torch.tree import leaves
+    ck_dir = DRYRUN_DIR / "ckpt"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    mesh = Mesh((2, 2), ("data", "model"), ["cuda:0"] * 4)
+    params = build(cfg).init_train_params(seed=seed, device="cuda")
+    t0 = time.perf_counter()
+    ck = Checkpointer(str(ck_dir))
+    ck.save(1, params)
+    save_s = time.perf_counter() - t0
+    like = dryrun.abstract_params(cfg)
+    t0 = time.perf_counter()
+    (placed, step, _), got = _allocated(torch, lambda: sharding.
+                                        elastic_restore(cfg, ck, like, mesh))
+    restore_s = time.perf_counter() - t0
+    pieces = dryrun.placed_pieces(cfg, like, mesh)
+    want = _alloc(n for _, n in pieces)
+    if step != 1 or got != want:
+        raise AssertionError(f"dryrun restore: step {step}, the card "
+                             f"allocated {got}, the sizing predicts {want}")
+    for (coords, _), tree in zip(mesh.positions(), placed):
+        def shape_ok(name, piece):
+            full = like
+            for part in name.split("/"):
+                full = full[part]
+            spec = sharding.param_pspec(cfg, mesh, name, full)
+            sl = sharding.spec_slices(mesh, coords, full.shape, spec)
+            if tuple(piece.shape) != tuple(hi - lo for lo, hi in sl):
+                raise AssertionError(f"dryrun restore {coords} {name}: "
+                                     f"{tuple(piece.shape)} under {spec}")
+        sharding._map_with_path(shape_ok, tree)
+    joined = sharding.join(placed)
+    equal = all(torch.equal(a, b) for a, b in zip(leaves(joined),
+                                                  leaves(params)))
+    if not equal:
+        raise AssertionError("dryrun restore: the joined tree differs from "
+                             "the saved params")
+    n_leaves = len(leaves(params))
+    del params, placed, joined
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    _free()
+    return {"mesh": dict(mesh.shape), "positions": mesh.size,
+            "leaves": n_leaves, "pieces": len(pieces),
+            "predicted_bytes": sum(n for _, n in pieces),
+            "predicted_allocated": want, "allocated_delta": got,
+            "joined_bitwise_equal": True, "save_s": save_s,
+            "restore_s": restore_s}
+
+
+def _pool_roundtrip(torch, seed: int, plen: int = 1000) -> dict:
+    """(e) ``write_prefill`` / ``gather`` / ``scatter`` / ``set_pools`` on
+    starcoder2-7b pools at full width (32 layers, 4 kv heads of 128, bf16,
+    pages of 16), at tp 1 and tp 2 (both shards on the card): the pages
+    hold the prefill's bf16 bits, the padded tail is zero, the scattered
+    copy equal, tp 1 and tp 2 the same bytes."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_tp_mesh
+    from repro_torch.serving.paging.pool import PagedKVCache
+    from repro_torch.weights import torch_to_numpy
+    cfg = get_config("starcoder2-7b")
+    L, hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    rng = np.random.default_rng(seed)
+    k_pre = rng.standard_normal((L, plen, hkv, hd)).astype(np.float32)
+    v_pre = rng.standard_normal((L, plen, hkv, hd)).astype(np.float32)
+    want_k = torch_to_numpy(torch.from_numpy(k_pre).to(torch.bfloat16))
+    gathered, row = {}, {"plen": plen, "pool_shape": None}
+    for tp in (1, 2):
+        cache = PagedKVCache(cfg, num_blocks=2 * (-(-plen // 16)) + 1,
+                             block_size=16, mesh=make_tp_mesh(
+                                 tp, devices=["cuda:0"] * tp))
+        row["pool_shape"] = list(cache.full_pools()[0].shape)
+        pt = cache.alloc_table(plen)
+        cache.write_prefill(pt, k_pre, v_pre)
+        kg, vg = cache.gather(pt)
+        flat = kg.reshape(L, -1, hkv, hd)
+        if not (np.array_equal(flat[:, :plen], want_k)
+                and (flat[:, plen:] == 0).all()):
+            raise AssertionError(f"dryrun pool tp={tp}: the pages are not "
+                                 "the prefill's bits and a zero tail")
+        pt2 = cache.scatter(kg, vg, plen)
+        cache.set_pools([{n: t.clone() for n, t in s.items()}
+                         for s in cache.pools()])
+        kg2, vg2 = cache.gather(pt2)
+        if not (np.array_equal(kg, kg2) and np.array_equal(vg, vg2)):
+            raise AssertionError(f"dryrun pool tp={tp}: scatter + "
+                                 "set_pools changed the pages")
+        gathered[tp] = (kg, vg)
+        del cache
+    if not all(np.array_equal(a, b) for a, b in zip(gathered[1],
+                                                    gathered[2])):
+        raise AssertionError("dryrun pool: tp 1 and tp 2 differ")
+    return {**row, "bitwise": True, "tp": [1, 2],
+            "page_bytes": int(gathered[1][0].nbytes)}
+
+
+def dryrun_memory(torch, seed: int) -> dict:
+    """(b) and (d), the checks of allocated bytes. ``python3 chip_smoke.py
+    --dryrun-memory`` runs them in a process of their own: the caching
+    allocator hands out a cached block less than 1 MB larger than a
+    request whole, and ``memory_allocated`` counts the whole block, so
+    the free blocks earlier phases leave would add to the deltas."""
+    from repro_torch.configs import SHAPES_BY_NAME, get_config
+    cfg = get_config("gemma-2b")
+    seq = SHAPES_BY_NAME["decode_32k"].seq_len
+    out = {"bytes": _bytes_on_card(torch, cfg, seed, DRYRUN_DECODE_BATCH,
+                                   seq)}
+    emit({"phase": "dryrun_bytes", **out["bytes"]})
+    _free()
+    out["restore"] = _restore_on_card(torch, cfg, seed)
+    emit({"phase": "dryrun_restore", **out["restore"]})
+    return out
+
+
+def _dryrun_memory_subprocess(seed: int) -> dict:
+    """``dryrun_memory`` in a fresh process; its JSON lines are passed
+    through and its result returned."""
+    argv = [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-memory",
+            "--seed", str(seed)]
+    out = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    lines = out.stdout.splitlines()
+    for ln in lines[:-1]:
+        print(ln, flush=True)
+    if out.returncode != 0 or not lines:
+        raise AssertionError(f"chip_smoke.py --dryrun-memory: exit "
+                             f"{out.returncode}\n{out.stdout[-2000:]}\n"
+                             f"{out.stderr[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def dryrun_phase(torch, seed: int) -> dict:
+    """The dry-run on meta and against the card: (a) the sweep, (b) the
+    sizing's bytes against the card's allocations, (c) the work of the
+    same decode (K4) and prefill (K3) steps on the card and on meta, (d) a
+    checkpoint restored onto a 2 x 2 mesh of the card, (e) the pool's
+    prefill write and round trip at tp 1 and 2. decode_32k's global batch
+    and prefill_32k are cut as ``DRYRUN_REDUCED`` says (the card's
+    memory)."""
+    from repro_torch.configs import SHAPES_BY_NAME, get_config
+    cfg = get_config("gemma-2b")
+    out = {"reduced": DRYRUN_REDUCED}
+    seq = SHAPES_BY_NAME["decode_32k"].seq_len
+    t0 = time.perf_counter()
+    out["sweep"] = _sweep(torch)
+    out["sweep"]["seconds"] = time.perf_counter() - t0
+    out.update(_dryrun_memory_subprocess(seed))
+    out["work"] = _work_on_card(torch, cfg, seed, DRYRUN_DECODE_BATCH, seq,
+                                DRYRUN_PREFILL_LEN)
+    out["pool"] = _pool_roundtrip(torch, seed)
+    launches = {}
+    for step in out["work"].values():
+        for k, v in step["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["work"] = {k: {"launches": v["launches"], "equal": v["equal"],
+                       "dot_flops": v["card"]["dot_flops"],
+                       "kernel_flops": v["card"]["kernel_flops"]}
+                   for k, v in out["work"].items()}
+    return {"launches": launches, **out}
+
+
 def _kernel_name(mangled: str) -> str:
     """name<template args> of a mangled kernel: the length-prefixed
     identifier ending in _kernel (a namespace hash may hold digits just
@@ -2946,6 +3316,10 @@ def kernel_entry(name, rows, launches, source, replaces):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # the dryrun phase's allocation checks, which it runs in a fresh
+    # process of their own (see dryrun_memory)
+    ap.add_argument("--dryrun-memory", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     # the train phase's bitwise resume runs deterministic cuBLAS, whose
     # workspace is fixed when the first handle is made
@@ -2960,6 +3334,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if args.dryrun_memory:
+        emit(dryrun_memory(torch, args.seed))
+        return 0
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import ops as da
@@ -3059,11 +3436,14 @@ def main() -> int:
     _free()
     train = train_phase(torch, args.seed)
     done("train", train)
+    _free()
+    dry = dryrun_phase(torch, args.seed)
+    done("dryrun", dry)
 
     launches = {name: sum(p["launches"][name]
                           for p in (main, legacy, dense, serve, lockstep,
                                     ssm, hybrid, moe, mla, vlm, starcoder2,
-                                    tp, encdec, train))
+                                    tp, encdec, train, dry))
                 for name in cases}
     src = "src/repro_torch/kernels/"
     ref = "src/repro/kernels/"

@@ -2,7 +2,9 @@
 
 Entry points default to ``device="cuda"`` and raise when CUDA is absent:
 only a caller that asks for the CPU (``device="cpu"``, as the tests do)
-runs there, so a missing card is never silently replaced by the host."""
+runs there, so a missing card is never silently replaced by the host.
+``meta`` (shapes and dtypes, no storage) is what the dry-run sizes on: it
+allocates nothing and stands in for no card."""
 from __future__ import annotations
 
 import torch
@@ -17,6 +19,20 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {device!r} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def seeded_generator(dev: torch.device, seed: int):
+    """A generator on ``dev`` seeded with ``seed``; None on ``meta``, which
+    has no generator and draws nothing."""
+    if dev.type == "meta":
+        return None
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def runs_kernels(dev: torch.device) -> bool:
+    """Whether the model sends work on ``dev`` to the kernels: on the card,
+    and on ``meta``, so that the dry-run sizes the path the card runs."""
+    return dev.type in ("cuda", "meta")
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -1,6 +1,8 @@
 """Distribution utilities of the port: the elastic engine fleet
-(``elastic.py``, a copy of the reference's) and ``sharding.py``: the
-serving rules of the tensor-parallel megastep (its mesh is
-``launch/mesh.py``) and the single-device restore. The reference's
-training rules, ``constrain.py`` and the dry-run belong to a later slice
-of the port."""
+(``elastic.py``, a copy of the reference's), ``sharding.py`` (the training
+rules of the dry-run and the elastic restore, and the serving rules of the
+tensor-parallel megastep; the meshes are ``launch/mesh.py``) and
+``constrain.py``."""
+from repro_torch.distributed.constrain import maybe_constrain
+
+__all__ = ["maybe_constrain"]

@@ -1,24 +1,30 @@
-"""Sharding for the port: the serving rules of the tensor-parallel megastep
-(DESIGN.md §13), and the two across-restart re-placing helpers that
-``distributed/elastic.py`` re-exports.
+"""Sharding for the port: the training rules over the ``(pod, data,
+model)`` mesh, the serving rules of the tensor-parallel megastep
+(DESIGN.md §13), and the re-placing helpers that ``distributed/elastic.py``
+re-exports.
 
-The reference holds two rule families here (``jax.sharding``). The port
-keeps the serving one, over the 1-D ``("tp",)`` mesh of
-``launch.mesh.make_tp_mesh``:
+torch has no ``PartitionSpec``: a spec is a tuple with one entry per
+dimension, an axis name, a tuple of axis names or None, equal to
+``tuple(P(...))`` of the reference's (so a one-axis tuple is the axis
+name). A "sharding" is ``(mesh, spec)``: torch has no ``NamedSharding``.
+The two rule families:
 
-  * ``kv_pool_pspec`` / ``megastep_input_pspecs`` / ``megastep_output_pspec``
-    and ``serving_param_pspec(s)`` name how each tensor is split. torch has
-    no ``PartitionSpec``: a spec is a tuple of axis names or None, one per
-    dimension, equal to ``tuple(P(...))`` of the reference's;
-  * ``tp_head_order`` / ``permute_attn_heads`` relabel the query heads so
-    contiguous per-shard slices keep the global GQA pairing;
-  * ``shard_serving_params`` cuts the params into one tree per shard.
+  * training/dry-run rules (``param_pspec`` and friends, the dry-run's):
+    name-based over tree paths; every rule gives the trailing dims, and
+    leading stack dims (stacked layers / hybrid groups) get None. Dims that
+    don't divide the mesh axis stay unsharded (never silently uneven);
+  * serving rules over the 1-D ``("tp",)`` mesh of
+    ``launch.mesh.make_tp_mesh``: ``kv_pool_pspec`` /
+    ``megastep_input_pspecs`` / ``megastep_output_pspec`` and
+    ``serving_param_pspec(s)``; ``tp_head_order`` / ``permute_attn_heads``
+    relabel the query heads so contiguous per-shard slices keep the global
+    GQA pairing; ``shard_serving_params`` cuts the params into one tree per
+    shard. These are strict: a dimension that ``tp`` does not divide
+    raises ValueError, never a silent replication.
 
-The rules are strict: a dimension that ``tp`` does not divide raises
-ValueError, never a silent replication. The training rules (``param_pspec``
-and friends, the dry-run's) are a later slice of the port, so
-``reshard_params`` / ``elastic_restore`` place a tree on one device and
-refuse a mesh of several.
+``reshard_params`` / ``elastic_restore`` place a tree under the training
+rules: one tree per mesh position, each holding its slice of every leaf,
+and ``join`` rebuilds the logical tree from them.
 """
 from __future__ import annotations
 
@@ -30,15 +36,19 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.tree import leaves, tree_map
 
+DP, MP, POD = "data", "model", "pod"
 TP = "tp"                     # the serving megastep's tensor-parallel axis
 
-__all__ = ["TP", "kv_pool_pspec", "megastep_input_pspecs",
+__all__ = ["DP", "MP", "POD", "TP", "param_pspec", "param_shardings",
+           "batch_axes", "batch_shardings", "decode_state_pspec",
+           "decode_state_shardings", "opt_state_shardings", "kv_pool_pspec",
+           "megastep_input_pspecs",
            "megastep_output_pspec", "validate_tp", "tp_head_order",
            "permute_attn_heads", "serving_param_pspec",
            "serving_param_pspecs", "shard_serving_params", "reshard_params",
-           "elastic_restore"]
+           "elastic_restore", "Placement", "join", "spec_slices"]
 
-Spec = Tuple[Optional[str], ...]
+Spec = Tuple[Any, ...]
 
 
 def _map_with_path(fn: Callable, tree, path: str = ""):
@@ -52,6 +62,175 @@ def _map_with_path(fn: Callable, tree, path: str = ""):
                                          else str(i))
                           for i, v in enumerate(tree))
     return fn(path, tree)
+
+
+# --------------------------------------------------------------------------
+# Training / dry-run rules over the (pod, data, model) mesh
+# --------------------------------------------------------------------------
+
+# rule table: path-regex -> trailing-dims spec template using DP/MP markers.
+# the first matching rule wins.
+_PARAM_RULES = [
+    (r"embed$", (MP, DP)),
+    (r"lm_head$", (DP, MP)),
+    (r"(dec_pos|enc_pos)$", (None, DP)),
+    (r"(kv_norm|norm|attn_norm|mlp_norm|cross_norm|final_norm|enc_final_norm)$",
+     (None,)),
+    # attention
+    (r"attn/w(q|k|v)$", (DP, MP)),
+    (r"cross/w(q|k|v)$", (DP, MP)),
+    (r"(attn|cross)/wo$", (MP, DP)),
+    # MLA
+    (r"attn/w_dkv$", (DP, None)),
+    (r"attn/w_u(k|v)$", (None, MP)),
+    # dense MLP
+    (r"mlp/w_(gate|up)$", (DP, MP)),
+    (r"mlp/w_down$", (MP, DP)),
+    # MoE: experts over MP (expert parallelism), router replicated-on-MP
+    (r"moe/router$", (DP, None)),
+    (r"moe/w_(gate|up)$", (MP, DP, None)),
+    (r"moe/w_down$", (MP, None, DP)),
+    (r"moe/shared/w_(gate|up)$", (DP, MP)),
+    (r"moe/shared/w_down$", (MP, DP)),
+    # Mamba
+    (r"mamba/in_proj$", (DP, MP)),
+    (r"mamba/conv_w$", (None, MP)),
+    (r"mamba/conv_b$", (MP,)),
+    (r"mamba/(A_log|D|dt_bias)$", (MP,)),
+    (r"mamba/out_proj$", (MP, DP)),
+]
+
+
+def _axis_ok(mesh, axis: Optional[str], dim: int) -> Optional[str]:
+    if axis is None:
+        return None
+    return axis if dim % mesh.shape[axis] == 0 else None
+
+
+def _entry(axes):
+    """A spec entry as ``P`` normalises it: a one-axis tuple is the axis."""
+    if isinstance(axes, tuple) and len(axes) == 1:
+        return axes[0]
+    return axes
+
+
+def param_pspec(cfg: ModelConfig, mesh, name: str, leaf) -> Spec:
+    """The spec of the param at path ``name`` ("layers/attn/wq") on
+    ``mesh``. Reads only ``leaf.shape``."""
+    ndim = len(leaf.shape)
+    # kv projections: a 16-way shard of hkv*hd is only expressible as a
+    # head-major tiling when hkv divides the mesh axis; otherwise the
+    # whole attention computation would replicate at the (hkv, hd)
+    # reshape. Replicating the small kv projection across `model` avoids
+    # that.
+    if re.search(r"attn/w(k|v)$", name) and cfg.n_kv_heads and \
+            cfg.n_kv_heads % mesh.shape[MP] != 0:
+        t = 2
+        lead = (None,) * (ndim - t)
+        return lead + (_axis_ok(mesh, DP, leaf.shape[-2]), None)
+    for pat, template in _PARAM_RULES:
+        if re.search(pat, name):
+            t = len(template)
+            lead = (None,) * (ndim - t)
+            dims = tuple(_axis_ok(mesh, ax, leaf.shape[ndim - t + i])
+                         for i, ax in enumerate(template))
+            return lead + dims
+    return ()                        # replicate by default (norm scales etc.)
+
+
+def param_shardings(cfg: ModelConfig, mesh, params_tree) -> Any:
+    """The tree of ``(mesh, spec)`` over a param tree."""
+    return _map_with_path(
+        lambda name, leaf: (mesh, param_pspec(cfg, mesh, name, leaf)),
+        params_tree)
+
+
+def batch_axes(mesh, batch: int):
+    """Largest (pod?, data) product that divides the global batch."""
+    if POD in mesh.shape:
+        if batch % (mesh.shape[POD] * mesh.shape[DP]) == 0:
+            return (POD, DP)
+        if batch % mesh.shape[POD] == 0:
+            return (POD,)
+    if batch % mesh.shape[DP] == 0:
+        return (DP,)
+    return None
+
+
+def batch_shardings(cfg: ModelConfig, mesh, specs: Dict[str, Any]) -> Any:
+    """``(mesh, spec)`` per input: the batch dim over ``batch_axes``, the
+    rest replicated; a 0-d input replicated."""
+    out = {}
+    for k, t in specs.items():
+        if len(t.shape) == 0:
+            out[k] = (mesh, ())
+            continue
+        ba = batch_axes(mesh, t.shape[0])
+        out[k] = (mesh, (_entry(ba),) + (None,) * (len(t.shape) - 1))
+    return out
+
+
+def decode_state_pspec(cfg: ModelConfig, mesh, name: str, leaf) -> Spec:
+    """KV caches: batch over data, sequence over model (sequence-parallel
+    cache: the KV tensor is the dominant decode working set). SSM states:
+    heads/channels over model."""
+    ndim = len(leaf.shape)
+
+    # locate the batch dim: stacked layer caches are (L, B, ...) or hybrid
+    # (G, E, B, ...); whisper cross caches (L, B, S, h, hd)
+    def spec_for(dims_after_stack, batch_pos):
+        lead = [None] * batch_pos
+        b = leaf.shape[batch_pos]
+        lead.append(batch_axes(mesh, b) and DP if b % mesh.shape[DP] == 0
+                    else None)
+        rest = [None] * (ndim - batch_pos - 1)
+        return lead, rest
+
+    if re.search(r"(^|/)(k|v|ckv|krope|cross_k|cross_v|attn_k|attn_v)\d?$",
+                 name):
+        stack = 1 if not name.startswith(("ckv0", "krope0")) else 0
+        if name in ("ckv0", "krope0"):
+            stack = 0
+        lead, rest = spec_for(None, stack)
+        # sequence dim right after batch
+        seq_idx = stack + 1
+        rest = [None] * (ndim - stack - 1)
+        if leaf.shape[seq_idx] % mesh.shape[MP] == 0:
+            rest[0] = MP
+        return tuple(lead + rest)
+    if re.search(r"(conv|tail_conv)$", name):
+        spec = [None] * ndim
+        if leaf.shape[-1] % mesh.shape[MP] == 0:
+            spec[-1] = MP
+        b_idx = ndim - 3
+        if leaf.shape[b_idx] % mesh.shape[DP] == 0:
+            spec[b_idx] = DP
+        return tuple(spec)
+    if re.search(r"(ssm|tail_ssm)$", name):
+        # (..., B, g, hg, n, p): shard hg over model
+        spec = [None] * ndim
+        if leaf.shape[-3] % mesh.shape[MP] == 0:
+            spec[-3] = MP
+        b_idx = ndim - 5
+        if leaf.shape[b_idx] % mesh.shape[DP] == 0:
+            spec[b_idx] = DP
+        return tuple(spec)
+    return ()
+
+
+def decode_state_shardings(cfg: ModelConfig, mesh, state_tree) -> Any:
+    return _map_with_path(
+        lambda name, leaf: (mesh, decode_state_pspec(cfg, mesh, name, leaf)),
+        state_tree)
+
+
+def opt_state_shardings(cfg: ModelConfig, mesh, opt_tree, params_tree):
+    """Moments mirror the param layout (ZeRO); step scalar replicated.
+    Returns an ``AdamWState`` of sharding trees."""
+    from repro_torch.training.optimizer import AdamWState
+    pshard = param_shardings(cfg, mesh, params_tree)
+    return AdamWState(step=(mesh, ()), m=pshard, v=pshard,
+                      err=pshard if opt_tree.err is not None else None)
 
 
 # --------------------------------------------------------------------------
@@ -214,43 +393,143 @@ def shard_serving_params(cfg: ModelConfig, mesh, params):
 
 
 # --------------------------------------------------------------------------
-# Elastic re-mesh: one device only until the training rules are ported
+# Elastic re-mesh: place a tree under the training rules
 # --------------------------------------------------------------------------
 
-def _target(mesh, tree) -> torch.device:
-    """The one device ``mesh`` names: None (the device of the tree's first
-    leaf), a device or its name, a ``TPMesh`` or a sequence holding one
-    device."""
-    if mesh is None:
-        first = leaves(tree)
-        return first[0].device if first else torch.device("cpu")
+def spec_slices(mesh, coords: Dict[str, int], shape, spec: Spec
+                ) -> Tuple[Tuple[int, int], ...]:
+    """The ``(start, stop)`` of every dim of a leaf of ``shape`` held at
+    the mesh position ``coords`` under ``spec``: a dim split over axes
+    (one, or a tuple taken row-major) gives the position its equal part;
+    an unsplit dim, the whole."""
+    out = []
+    for i, n in enumerate(shape):
+        entry = spec[i] if i < len(spec) else None
+        axes = () if entry is None else \
+            (entry,) if isinstance(entry, str) else tuple(entry)
+        parts, idx = 1, 0
+        for a in axes:
+            parts, idx = parts * mesh.shape[a], idx * mesh.shape[a] + coords[a]
+        size = n // parts
+        out.append((idx * size, (idx + 1) * size))
+    return tuple(out)
+
+
+def _devices(mesh) -> Tuple[torch.device, ...]:
+    """The positions' devices, row-major, of a mesh or a sequence."""
+    devs = getattr(mesh, "flat_devices", None)
+    if devs is None:
+        devs = getattr(mesh, "devices", mesh)
+    return tuple(torch.device(d) for d in devs)
+
+
+def _single(mesh) -> Optional[torch.device]:
+    """The one device ``mesh`` names (a device or its name, or a mesh or
+    sequence of one position), or None for a mesh of several positions.
+    A bare sequence of several devices, or a ``("tp",)`` mesh of several
+    shards, has no training axes and raises ValueError."""
     if isinstance(mesh, (str, torch.device)):
         return torch.device(mesh)
-    devices = list(getattr(mesh, "devices", mesh))
-    if len(devices) != 1:
-        raise NotImplementedError(
-            f"a mesh of {len(devices)} devices needs the training placement "
-            "rules (the reference's param_pspec), a later slice of the port "
-            "(ROADMAP Queue 1, item 9)")
-    return torch.device(devices[0])
+    devices = _devices(mesh)
+    if len(devices) == 1:
+        return devices[0]
+    axes = tuple(getattr(mesh, "axis_names", ()))
+    if DP not in axes or MP not in axes:
+        raise ValueError(
+            f"{len(devices)} devices with axes {axes}: the training rules "
+            f"place over a mesh with '{DP}' and '{MP}' axes "
+            "(launch.mesh.make_local_mesh / make_production_mesh); a "
+            "('tp',) mesh takes shard_serving_params")
+    return None
+
+
+class Placement(list):
+    """``reshard_params``' result on a mesh of several positions: one tree
+    per position, in the mesh's row-major order. ``mesh`` and ``specs``
+    (path -> (logical shape, spec)) are what ``join`` reads."""
+
+    def __init__(self, trees, mesh, specs: Dict[str, Tuple]):
+        super().__init__(trees)
+        self.mesh = mesh
+        self.specs = specs
 
 
 def reshard_params(cfg: ModelConfig, params: Any, mesh) -> Any:
-    """Place a (host-resident) tree of tensors on ``mesh``: None keeps
-    each leaf where it is; a device, its name or a one-device mesh moves
-    every leaf there. A mesh of more than one device raises
-    ``NotImplementedError``: that placement takes the training rules."""
+    """Place a (host-resident) tree of tensors on ``mesh`` under the
+    training rules (``param_pspec``). None keeps each leaf where it is; a
+    device, its name or a mesh of one position moves every leaf there.
+    A mesh of several positions gives a ``Placement``: one tree per
+    position, in the mesh's row-major order, each holding its slice of
+    every leaf; a slice that several positions on one device share is
+    placed there once (a replicated leaf once per distinct device). Rules
+    degrade gracefully (dims that stop dividing the new axis sizes fall
+    back to replication), which is what makes shrink-to-fewer-hosts
+    restarts safe. ``join`` rebuilds the logical tree."""
     if mesh is None:
         return params
-    dev = _target(mesh, params)
-    return tree_map(lambda t: t.to(dev), params)
+    dev = _single(mesh)
+    if dev is not None:
+        return tree_map(lambda t: t.to(dev), params)
+    specs: Dict[str, Tuple] = {}
+    placed: Dict[Tuple, torch.Tensor] = {}
+
+    def position(coords, dev):
+        def cut(name, leaf):
+            if name not in specs:
+                specs[name] = (tuple(leaf.shape),
+                               param_pspec(cfg, mesh, name, leaf))
+            sl = spec_slices(mesh, coords, leaf.shape, specs[name][1])
+            key = (id(leaf), dev, sl)
+            if key not in placed:
+                part = leaf
+                for dim, (lo, hi) in enumerate(sl):
+                    if hi - lo != leaf.shape[dim]:
+                        part = part.narrow(dim, lo, hi - lo)
+                placed[key] = (leaf.to(dev) if part is leaf
+                               else part.to(dev).contiguous())
+            return placed[key]
+        return _map_with_path(cut, params)
+
+    trees = [position(coords, dev) for coords, dev in mesh.positions()]
+    return Placement(trees, mesh, specs)
+
+
+def join(placed) -> Any:
+    """The logical tree of a ``Placement``: every leaf assembled from its
+    positions' slices on the first position's device. Any other tree
+    (``reshard_params``' result for None or one device) is returned as it
+    is."""
+    if not isinstance(placed, Placement):
+        return placed
+    mesh = placed.mesh
+    positions = [c for c, _ in mesh.positions()]
+    dev = _devices(mesh)[0]
+    by_path = [{} for _ in placed]
+    for i, tree in enumerate(placed):
+        _map_with_path(lambda name, leaf, i=i: by_path[i].__setitem__(
+            name, leaf), tree)
+
+    def whole(name, first):
+        shape, spec = placed.specs[name]
+        out = torch.empty(shape, dtype=first.dtype, device=dev)
+        for coords, pieces in zip(positions, by_path):
+            sl = spec_slices(mesh, coords, shape, spec)
+            out[tuple(slice(lo, hi) for lo, hi in sl)] = pieces[name]
+        return out
+
+    return _map_with_path(whole, placed[0])
 
 
 def elastic_restore(cfg: ModelConfig, checkpointer, like: Any, mesh,
                     step=None):
     """Restore a checkpoint (the latest, or ``step``) into the structure
-    of ``like`` and place it on ``mesh`` (None: the device of ``like``'s
-    leaves). Returns (placed_tree, step, extra)."""
-    dev = _target(mesh, like)
+    of ``like`` and place it on ``mesh`` as ``reshard_params`` does (None:
+    the device of ``like``'s leaves). Checkpoints store logically-unsharded
+    arrays, so elastic scaling is purely a placement problem. Returns
+    (placed, step, extra)."""
+    if mesh is None:
+        first = leaves(like)
+        mesh = first[0].device if first else torch.device("cpu")
+    _single(mesh)                   # a mesh without training axes raises
     tree, step, extra = checkpointer.restore(like, step=step)
-    return reshard_params(cfg, tree, dev), step, extra
+    return reshard_params(cfg, tree, mesh), step, extra

@@ -10,6 +10,13 @@ version in ``ref``. Each call that launches adds one to
 
 The kernel splits the cache's keys over its grid; ``split_plan`` chooses
 the split from the shapes and the card's SM count, never from the lengths.
+
+On ``meta`` tensors (the dry-run) it returns an empty output of the
+kernel's shape and dtype, never the plain version, after allocating the
+workspace a launch would (planned with the card's SM count, or
+``H100_SM_COUNT`` on a host without one), so the dry-run's bytes are the
+card's. On ``cuda`` and ``meta`` alike each call adds its work to
+``work.count_work``.
 """
 from __future__ import annotations
 
@@ -18,13 +25,14 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import launch
+from repro_torch.kernels import launch, work
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 SPLIT_ALIGN = 8          # keys; a split is a multiple of this (or S)
 MAX_SPLIT = 128          # keys; one per thread of a block at g = 1
 SMEM_BYTES = 227 * 1024  # what one block may hold on an H100
+H100_SM_COUNT = 132      # the plan's SM count for meta without a card
 _fns: dict = {}
 _sm_counts: dict = {}
 
@@ -78,6 +86,12 @@ def _max_split(g: int, d: int, dv: int, es: int, align: int = SPLIT_ALIGN,
 
 
 def sm_count(dev: torch.device) -> int:
+    """The SM count a launch on ``dev`` plans with; ``meta`` plans for the
+    current card, or an H100 when the host has none."""
+    if dev.type == "meta":
+        if not torch.cuda.is_available():
+            return H100_SM_COUNT
+        dev = torch.device("cuda")
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     if idx not in _sm_counts:
         _sm_counts[idx] = torch.cuda.get_device_properties(
@@ -99,12 +113,12 @@ def decode_attention(q, cache_k, cache_v, kv_len, *, scale=None,
     layout, read in place; kv_len: an int (every row) or a (b,) int32
     tensor, row b seeing keys ``< kv_len[b]``. Returns (b, 1, hq, dv) in
     q's dtype. CUDA tensors launch the kernel, CPU tensors take the plain
-    version."""
+    version, meta tensors give the empty output."""
     launch.check_pairing(pairing)
     if q.device.type == "cpu":
         return decode_attention_ref(q[:, 0], cache_k, cache_v, kv_len,
                                     scale=scale, pairing=pairing)[:, None]
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no decode attention for device {q.device}")
     if q.ndim != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be (b, 1, hq, d), got {tuple(q.shape)}")
@@ -125,11 +139,15 @@ def decode_attention(q, cache_k, cache_v, kv_len, *, scale=None,
     out = torch.empty((b, 1, hq, dv), dtype=q.dtype, device=q.device)
     if b == 0 or S == 0:
         return out
+    work.add("K4", lambda: work.k4_flops(work.lengths(kv_len, b, "kv_len"),
+                                         hq, d, dv))
     split, n_split = kernel_plan(q, cache_k, cache_v)
     ws_o = torch.empty((b, hq, n_split, dv), dtype=torch.float32,
                        device=q.device)
     ws_ml = torch.empty((b, hq, n_split, 2), dtype=torch.float32,
                         device=q.device)
+    if q.device.type == "meta":
+        return out
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     launch.run(load_kernel(), "decode_attention", q.device, q.dtype,
                q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),

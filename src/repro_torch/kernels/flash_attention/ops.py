@@ -13,6 +13,10 @@ Where an input requires grad (training), the launch goes through
 each row's log-sum-exp, and its backward is ``backward.py``'s
 FlashAttention-2 backward in torch ops. The TPU kernel has no backward:
 the reference trains through XLA's autodiff of its plain attention.
+
+On ``meta`` tensors (the dry-run) every entry returns empty outputs of the
+kernel's shapes and dtypes, never the plain version. On ``cuda`` and
+``meta`` alike each call adds its work to ``work.count_work``.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import launch
+from repro_torch.kernels import launch, work
 from repro_torch.kernels.flash_attention.backward import \
     flash_attention_backward
 from repro_torch.kernels.flash_attention.ref import BLOCK_M, \
@@ -58,7 +62,7 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None,
     model's layout, any sq and skv. Causal: query i sees keys <= i. Returns
     (b, sq, hq, dv) in q's dtype. CUDA tensors launch the kernel (through
     ``FlashAttentionFn`` where an input requires grad), CPU tensors take
-    the plain version."""
+    the plain version, meta tensors give the empty output."""
     launch.check_pairing(pairing)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, scale=scale,
@@ -85,8 +89,8 @@ def flash_attention_lse(q, k, v, *, causal: bool = True, scale=None,
 
 def _launch(q, k, v, causal: bool, scale: float, pairing: str, *,
             want_lse: bool):
-    """One launch of K3: (out, lse or None)."""
-    if q.device.type != "cuda":
+    """One launch of K3: (out, lse or None); on meta the empty outputs."""
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no flash attention for device {q.device}")
     b, sq, hq, d = q.shape
     skv, hkv, dk = k.shape[1:]
@@ -102,6 +106,9 @@ def _launch(q, k, v, causal: bool, scale: float, pairing: str, *,
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
     if b == 0 or sq == 0 or skv == 0:
+        return out, lse
+    work.add("K3", lambda: work.k3_flops(b, sq, skv, hq, d, dv, causal))
+    if q.device.type == "meta":
         return out, lse
     launch.run(load_kernel(), "flash_attention", q.device, q.dtype,
                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

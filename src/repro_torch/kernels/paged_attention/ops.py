@@ -21,6 +21,12 @@ leave SMs idle (``prefill_plan``), and the warp-per-row walk in float32.
 per-row view, reshaped into a pool whose page table is ``b*npages + j``.
 Its output must equal the paged call's bit for bit, which pins the page
 walk apart from float associativity.
+
+On ``meta`` tensors each wrapper returns an empty output of its kernel's
+shape and dtype, never the plain version, after allocating the workspace a
+launch would (``kernel_plan`` plans ``meta`` as ``da.sm_count`` says). On
+``cuda`` and ``meta`` alike each call adds its work to ``work.count_work``
+(the work depends on the lengths, so counting a meta call raises).
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import launch
+from repro_torch.kernels import launch, work
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.flash_attention.ref import BLOCK_M, key_tile
 from repro_torch.kernels.paged_attention.ref import (
@@ -137,12 +143,15 @@ def _workspace(q, R: int, n_split: int, dv: int):
 
 def _split_decode(q, k_pool, v_pool, lens, valids, page_tables, scale,
                   pairing, plan):
-    """Launch the split decode on q (b, 1, hq, d); ``valids`` None for K2."""
+    """Launch the split decode on q (b, 1, hq, d); ``valids`` None for K2.
+    On meta only the output and the workspace are allocated."""
     b, _, hq, d = q.shape
     blk, hkv = k_pool.shape[1:3]
     dv = v_pool.shape[-1]
     out = torch.empty((b, 1, hq, dv), dtype=q.dtype, device=q.device)
     _ws, ws_o, ws_ml = _workspace(q, hq, plan["n_split"], dv)
+    if q.device.type == "meta":
+        return out
     launch.run(load_kernel("paged_decode_attention"), "paged_attention",
                q.device, q.dtype, q.data_ptr(), k_pool.data_ptr(),
                v_pool.data_ptr(), lens.data_ptr(),
@@ -168,7 +177,7 @@ def paged_prefill_attention(q, k_pool, v_pool, cache_lens, valids,
         return paged_prefill_attention_ref(q, k_pool, v_pool, cache_lens,
                                            valids, page_tables, scale=scale,
                                            pairing=pairing)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no paged attention for device {q.device}")
     _check_pools(q, k_pool, v_pool, page_tables,
                  {"cache_lens": cache_lens, "valids": valids})
@@ -176,6 +185,9 @@ def paged_prefill_attention(q, k_pool, v_pool, cache_lens, valids,
     dv = v_pool.shape[-1]
     if b == 0 or C == 0:
         return torch.empty((b, C, hq, dv), dtype=q.dtype, device=q.device)
+    work.add("K1", lambda: work.k1_flops(
+        work.lengths(cache_lens, b, "cache_lens"),
+        work.lengths(valids, b, "valids"), C, hq, d, dv))
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     plan = kernel_plan(q, k_pool, v_pool, page_tables)
     if plan["route"] == "split":
@@ -185,6 +197,8 @@ def paged_prefill_attention(q, k_pool, v_pool, cache_lens, valids,
         out = torch.empty((b, C, hq, dv), dtype=q.dtype, device=q.device)
         _ws, ws_o, ws_ml = (_workspace(q, C * hq, plan["n_split"], dv)
                             if plan["n_split"] > 1 else (None, None, None))
+        if q.device.type == "meta":
+            return out
         launch.run(load_kernel(), "paged_prefill_attention", q.device,
                    q.dtype, q.data_ptr(), k_pool.data_ptr(),
                    v_pool.data_ptr(), cache_lens.data_ptr(),
@@ -192,7 +206,8 @@ def paged_prefill_attention(q, k_pool, v_pool, cache_lens, valids,
                    out.data_ptr(), ws_o, ws_ml, b, C, hq, k_pool.shape[2],
                    d, dv, k_pool.shape[1], page_tables.shape[1],
                    plan["split"], float(scale), launch.PAIRINGS[pairing])
-    paged_prefill_attention.launches += 1
+    if q.device.type == "cuda":
+        paged_prefill_attention.launches += 1
     return out
 
 
@@ -211,19 +226,22 @@ def paged_attention(q, k_pool, v_pool, lens, page_tables, *, scale=None,
         return paged_attention_ref(q[:, 0], k_pool, v_pool, lens,
                                    page_tables, scale=scale,
                                    pairing=pairing)[:, None]
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no paged attention for device {q.device}")
     if q.ndim != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be (b, 1, hq, d), got {tuple(q.shape)}")
     _check_pools(q, k_pool, v_pool, page_tables, {"lens": lens})
     b, _, hq, d = q.shape
+    dv = v_pool.shape[-1]
     if b == 0:
-        return torch.empty((b, 1, hq, v_pool.shape[-1]), dtype=q.dtype,
-                           device=q.device)
+        return torch.empty((b, 1, hq, dv), dtype=q.dtype, device=q.device)
+    work.add("K2", lambda: work.k2_flops(work.lengths(lens, b, "lens"), hq,
+                                         d, dv))
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     out = _split_decode(q, k_pool, v_pool, lens, None, page_tables, scale,
                         pairing, kernel_plan(q, k_pool, v_pool, page_tables))
-    paged_attention.launches += 1
+    if q.device.type == "cuda":
+        paged_attention.launches += 1
     return out
 
 

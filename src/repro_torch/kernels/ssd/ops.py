@@ -26,6 +26,11 @@ batch and sequence (they are slices of one conv output), so the wrapper
 makes no copy of them; it takes a compute-dtype x/B/C beside float32
 dt/A/state, so it has its own input check rather than
 ``launch.check_inputs``.
+
+On ``meta`` tensors (the dry-run) it returns empty outputs of the
+kernel's shapes and dtypes, never the plain version, after allocating the
+scratch a launch would. On ``cuda`` and ``meta`` alike each call adds its
+work to ``work.count_work``.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, launch
+from repro_torch.kernels import build, launch, work
 from repro_torch.kernels.ssd.backward import ssd_backward
 from repro_torch.kernels.ssd.ref import TILE, chunk_len, ssd_chunked_ref
 
@@ -186,7 +191,7 @@ def ssd(x, dt, A, B, C, chunk: int,
     (b, g, h/g, n, p) float32). Raises ``ValueError`` unless
     ``min(chunk, s)`` divides s. CUDA tensors launch the kernel (through
     ``SSDFn`` where an input requires grad), CPU tensors take the plain
-    version."""
+    version, meta tensors give the empty outputs."""
     if x.device.type == "cpu":
         return ssd_chunked_ref(x, dt, A, B, C, chunk, initial_state)
     inputs = (x, dt, A, B, C, initial_state)
@@ -197,8 +202,9 @@ def ssd(x, dt, A, B, C, chunk: int,
 
 
 def _launch(x, dt, A, B, C, chunk: int, initial_state):
-    """One call of the C entry: (y, final state)."""
-    if x.device.type != "cuda":
+    """One call of the C entry: (y, final state); on meta the empty
+    outputs."""
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no SSD scan for device {x.device}")
     if x.ndim != 4 or B.ndim != 4 or C.ndim != 4:
         raise ValueError("x, B and C must be 4-d")
@@ -217,7 +223,7 @@ def _launch(x, dt, A, B, C, chunk: int, initial_state):
             raise ValueError(f"d_state {n}, head dim {p}, chunk {L} need "
                              f"{k['smem']} bytes of shared memory in the "
                              f"{name} kernel, over {MAX_SMEM_BYTES}")
-    fn = load_kernel()
+    work.add("K5", lambda: work.k5_flops(b, s, h, p, g, n, L))
     scratch = [None] * 3
     if x.dtype == torch.bfloat16:
         nc, Lt = plan["nc"], plan["tiles"] * TILE
@@ -226,8 +232,10 @@ def _launch(x, dt, A, B, C, chunk: int, initial_state):
                    torch.empty((b, nc, g, Lt, Lt), dtype=f32, device=dev),
                    torch.empty((3, b, nc, h, n, p), dtype=x.dtype,
                                device=dev)]
-    launch.run(fn, "ssd", x.device, x.dtype, x.data_ptr(), dt.data_ptr(),
-               A.data_ptr(), B.data_ptr(), C.data_ptr(),
+    if x.device.type == "meta":
+        return y, state
+    launch.run(load_kernel(), "ssd", x.device, x.dtype, x.data_ptr(),
+               dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
                initial_state.data_ptr() if initial_state is not None
                else None, y.data_ptr(), state.data_ptr(),
                *[t.data_ptr() if t is not None else None for t in scratch],

@@ -30,6 +30,7 @@ import math
 import torch
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.device import runs_kernels
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.paged_attention import ops as pa
 from repro_torch.models.layers import _init, apply_rope, attention, \
@@ -248,7 +249,7 @@ def gqa_decode_ring(params, x, cache_k, cache_v, cache_len: int,
     cache_k[:, write] = k[:, 0].to(cache_k.dtype)
     cache_v[:, write] = v[:, 0].to(cache_v.dtype)
     kv_len = min(cache_len + 1, w)
-    if x.device.type == "cuda":
+    if runs_kernels(x.device):
         o = da.decode_attention(q.contiguous(), cache_k, cache_v, kv_len,
                                 pairing=_pairing(cfg))
     else:

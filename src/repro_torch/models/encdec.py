@@ -30,7 +30,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.device import resolve_device, seeded_generator, torch_dtype
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (_init, apply_mlp, cross_entropy_loss,
                                        init_mlp, rms_norm)
@@ -77,7 +77,7 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
 def _raw_params(cfg: ModelConfig, generator, seed: int, dev, dtype) -> Dict:
     """Every leaf drawn in ``dtype``, both stacks as lists."""
     if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(seed)
+        generator = seeded_generator(dev, seed)
     kw = dict(generator=generator, device=dev, dtype=dtype)
     d = cfg.d_model
     return {"embed": _init((cfg.vocab_size, d), scale=0.02, **kw),

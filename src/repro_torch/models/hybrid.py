@@ -26,7 +26,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.device import resolve_device, seeded_generator, torch_dtype
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.layers import (_init, apply_mlp, cross_entropy_loss,
@@ -65,7 +65,7 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
 def _raw_params(cfg: ModelConfig, generator, seed: int, dev, dtype) -> Dict:
     """Every leaf drawn in ``dtype``; ``groups`` a list of lists."""
     if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(seed)
+        generator = seeded_generator(dev, seed)
     kw = dict(generator=generator, device=dev, dtype=dtype)
     zeros = dict(device=dev, dtype=dtype)
     g, e, tail = _layout(cfg)

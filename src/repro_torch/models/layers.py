@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import runs_kernels
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.gqa import group_heads, ungroup_heads
 
@@ -104,7 +105,7 @@ def simple_attention(q, k, v, *, causal: bool, kv_len=None, q_offset=0,
 def attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None,
               window: int = 0, scale: Optional[float] = None,
               gqa_mode: str = "grouped"):
-    """Dispatch: on the card, full-sequence attention (no ``kv_len``, no
+    """Dispatch: on the card (and on ``meta``), full-sequence attention (no ``kv_len``, no
     window, queries from position 0) goes to the flash kernel (K3) at every
     sq; everything else, and every CPU tensor, to ``simple_attention``.
     ``gqa_mode="tiled"`` is the reference's tiled KV, which pairs q-head h
@@ -112,7 +113,7 @@ def attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None,
     tiling."""
     pairing = "g_major" if gqa_mode == "tiled" else "kv_major"
     from_zero = not torch.is_tensor(q_offset) and q_offset == 0
-    if q.device.type == "cuda" and kv_len is None and not window \
+    if runs_kernels(q.device) and kv_len is None and not window \
             and from_zero:
         return fa.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=causal, scale=scale,

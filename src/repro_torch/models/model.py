@@ -140,3 +140,17 @@ def build(cfg: ModelConfig) -> Model:
         poison=None: transformer.mixed_step_paged(
             params, pools, toks, lens, valids, tables, cfg, poison),
     )
+
+
+def abstract_params(cfg: ModelConfig) -> Dict:
+    """The master params on ``meta`` (shapes and dtypes, no storage): the
+    reference's stacked layout in ``cfg.param_dtype``, which the training
+    rules walk (the dry-run's)."""
+    return build(cfg).init_train_params(device="meta")
+
+
+def abstract_decode_state(cfg: ModelConfig, batch: int, max_len: int
+                          ) -> Dict:
+    """The decode state of ``batch`` rows of ``max_len`` positions on
+    ``meta``."""
+    return build(cfg).init_decode_state(batch, max_len, device="meta")

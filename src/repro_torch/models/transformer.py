@@ -52,7 +52,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.device import resolve_device, seeded_generator, torch_dtype
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssd as ssd_mod
@@ -111,7 +111,7 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
 def _raw_params(cfg: ModelConfig, generator, seed: int, dev, dtype) -> Dict:
     """Every leaf drawn in ``dtype``, per-layer params as lists."""
     if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(seed)
+        generator = seeded_generator(dev, seed)
     kw = dict(generator=generator, device=dev, dtype=dtype)
     zeros = dict(device=dev, dtype=dtype)
     raw = {"embed": _init((cfg.vocab_size, cfg.d_model), scale=0.02, **kw),

@@ -86,6 +86,26 @@ class PagedKVCache:
         (one entry without a mesh)."""
         return self.shards
 
+    def set_pools(self, pools: List[Dict[str, torch.Tensor]]):
+        """Rebind every shard's K and V pools to ``pools``: the list
+        ``pools()`` returns, one {"k", "v"} per shard, each of its shard's
+        shape, dtype and device. The reference's engine hands back the
+        buffers its donated steps return through this; the port's steps
+        write the pools in place, so its engine has no need to."""
+        if len(pools) != len(self.shards):
+            raise ValueError(f"{len(pools)} pools for {len(self.shards)} "
+                             "shards")
+        for old, new in zip(self.shards, pools):
+            for name in ("k", "v"):
+                a, b = old[name], new[name]
+                if (a.shape, a.dtype, a.device) != (b.shape, b.dtype,
+                                                    b.device):
+                    raise ValueError(
+                        f"pool {name}: {tuple(b.shape)} {b.dtype} on "
+                        f"{b.device}, not {tuple(a.shape)} {a.dtype} on "
+                        f"{a.device}")
+        self.shards = [{"k": p["k"], "v": p["v"]} for p in pools]
+
     def full_pools(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The whole K and V pools, (L, num_blocks, blk, hkv, hd): without
         a mesh the live tensors themselves, under one a copy that joins the
@@ -217,18 +237,19 @@ class PagedKVCache:
         pt.blocks[page_idx] = new
 
     def _put_pages(self, bids: np.ndarray, k_pages, v_pages):
-        """In-place bulk page write of full-hkv host pages, each shard
-        taking its kv-head slice. The page axis is padded to a power of
-        two, padding rows (zeros) aimed at the null block."""
+        """In-place bulk page write of full-hkv pages (host arrays or
+        tensors), each shard taking its kv-head slice. The page axis is
+        padded to a power of two, padding rows (zeros) aimed at the null
+        block."""
         pages = len(bids)
         width = _pow2_pad(max(pages, 1))
         row = np.full((width,), NULL_BLOCK, np.int64)
         row[:pages] = bids
         for name, host in (("k", k_pages), ("v", v_pages)):
-            full = numpy_to_torch(host)
+            full = host if torch.is_tensor(host) else numpy_to_torch(host)
             if width != pages:
-                pad = torch.zeros((full.shape[0], width - pages,
-                                   *full.shape[2:]), dtype=full.dtype)
+                pad = full.new_zeros((full.shape[0], width - pages,
+                                      *full.shape[2:]))
                 full = torch.cat([full, pad], dim=1)
             for i, shard in enumerate(self.shards):
                 pool = shard[name]
@@ -236,6 +257,26 @@ class PagedKVCache:
                 pool[:, torch.from_numpy(row).to(pool.device)] = \
                     full[:, :, :, i * hl:(i + 1) * hl].to(
                         device=pool.device, dtype=pool.dtype)
+
+    def write_prefill(self, pt: PageTable, k_pre, v_pre):
+        """Scatter prefill KV (L, plen, hkv, hd), full-hkv host arrays or
+        tensors, into the sequence's blocks: one in-place write per shard
+        and pool, the last partial page zero-padded."""
+        L, plen = k_pre.shape[0], k_pre.shape[1]
+        self.ensure_capacity(pt, plen)
+        pages = self.pages_for(plen)
+        pad = pages * self.block_size - plen
+        bids = np.asarray(pt.blocks[:pages], np.int64)
+
+        def paged(pre):
+            pre = pre if torch.is_tensor(pre) else numpy_to_torch(pre)
+            if pad:
+                pre = torch.cat([pre, pre.new_zeros((L, pad,
+                                                     *pre.shape[2:]))], dim=1)
+            return pre.reshape(L, pages, self.block_size, *pre.shape[2:])
+
+        self._put_pages(bids, paged(k_pre), paged(v_pre))
+        pt.num_tokens = plen
 
     # ------------------------------------------------- swap (host pages)
     def gather(self, pt: PageTable) -> Tuple[np.ndarray, np.ndarray]:

@@ -22,7 +22,9 @@ from repro.models import build as ref_build
 from repro.training import optimizer as ref_opt
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_smoke_config
-from repro_torch.distributed.sharding import elastic_restore, reshard_params
+from repro_torch.distributed.sharding import (Placement, elastic_restore,
+                                              join, reshard_params)
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import build
 from repro_torch.training import optimizer as opt
 from repro_torch.training.data import SyntheticLM
@@ -261,10 +263,25 @@ def test_elastic_restore_of_a_reference_checkpoint(tmp_path):
 
 
 def test_a_mesh_of_several_devices_is_not_ported(tmp_path):
+    """Named for what the port once did: a mesh of several devices now
+    places under the training rules. A 1 x 2 ``("data", "model")`` mesh of
+    the CPU gives one tree per position, whose join is the checkpoint's
+    bits; a bare list of two devices names no axes and raises
+    ValueError; None keeps the tree itself."""
     _, params, _, _ = _setup()
+    cfg = get_smoke_config(ARCH).replace(remat=False)
+    mesh = make_local_mesh(devices=["cpu", "cpu"])
+    placed = reshard_params(cfg, params, mesh)
+    assert isinstance(placed, Placement) and len(placed) == 2
+    _assert_equal(join(placed), params)
+    ck = Checkpointer(str(tmp_path))
+    ck.save(3, params)
+    restored, step, _ = elastic_restore(cfg, ck, params, mesh)
+    assert step == 3 and len(restored) == 2
+    _assert_equal(join(restored), params)
     two = [torch.device("cpu"), torch.device("cpu")]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        reshard_params(None, params, two)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        elastic_restore(None, Checkpointer(str(tmp_path)), params, two)
-    assert reshard_params(None, params, None) is params
+    with pytest.raises(ValueError, match="training rules"):
+        reshard_params(cfg, params, two)
+    with pytest.raises(ValueError, match="training rules"):
+        elastic_restore(cfg, ck, params, two)
+    assert reshard_params(cfg, params, None) is params

@@ -34,6 +34,8 @@ from repro_torch.serving import (DiskTierKVSwapStore, EngineLostError,
                                  MigrationError, PagedEngineBackend,
                                  PagedInferenceEngine, SessionJournal,
                                  SwapCorruptionError)
+from repro_torch.launch.mesh import make_local_mesh, make_tp_mesh
+from repro_torch.tree import leaves
 from repro_torch.weights import params_from_jax
 
 
@@ -530,21 +532,29 @@ def test_mixed_fleet_fluid_migration_bit_exact(src, setup):
     assert all(_release_all(m.backend.engine) == 0 for m in fleet.members)
 
 
-# ------------------- the re-meshing helpers: one device, no mesh ported
+# ------------------- the re-meshing helpers: one device, or a mesh
 
 def test_remesh_helpers_raise_until_the_port_has_a_mesh(setup):
-    """A single-device target is a move (the checkpointer's restore is
-    tests/test_torch_checkpoint.py's); a mesh of several devices raises:
-    re-placing a tree there takes the training rules, which the port does
-    not have yet (the serving mesh has its own rules)."""
+    """Named for what the port once did: the helpers now take a mesh. A
+    single-device target is a move (the checkpointer's restore is
+    tests/test_torch_checkpoint.py's); a 1 x 2 ``("data", "model")`` mesh
+    places one tree per position under the training rules, whose join is
+    the tree; a bare list of several devices names no axes and raises
+    ValueError, and so does the serving ``("tp",)`` mesh of two shards."""
     cfg, params = setup[:2]
     assert reshard_params is sharding.reshard_params
     assert elastic_restore is sharding.elastic_restore
     assert reshard_params(cfg, params, mesh=None) is params
     moved = reshard_params(cfg, params, mesh="cpu")
     assert torch.equal(moved["embed"], params["embed"])
-    two = ["cpu", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        reshard_params(cfg, params, mesh=two)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        elastic_restore(cfg, None, params, mesh=two)
+    placed = reshard_params(cfg, params,
+                            mesh=make_local_mesh(devices=["cpu", "cpu"]))
+    assert len(placed) == 2
+    joined = sharding.join(placed)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(joined),
+                                                 leaves(params)))
+    for two in (["cpu", "cpu"], make_tp_mesh(2, devices=["cpu"] * 2)):
+        with pytest.raises(ValueError, match="training rules"):
+            reshard_params(cfg, params, mesh=two)
+        with pytest.raises(ValueError, match="training rules"):
+            elastic_restore(cfg, None, params, mesh=two)

@@ -61,15 +61,19 @@ def test_contig_twin_equals_paged_on_cpu(pairing):
 
 
 def test_wrapper_dispatch_by_device():
-    """CPU tensors take the plain version without counting a launch; a
-    device with no kernel raises rather than falling back."""
+    """CPU tensors take the plain version without counting a launch; meta
+    tensors (the dry-run's) give an empty output of the kernel's shape and
+    dtype, never the plain version, and launch nothing; an unknown pairing
+    raises."""
     case = _t(_case("gqa", 8))
     before = ops.paged_prefill_attention.launches
     out = ops.paged_prefill_attention(*case)
     assert out.shape == (3, 8, 4, 32)
     assert ops.paged_prefill_attention.launches == before
-    with pytest.raises(ValueError):
-        ops.paged_prefill_attention(*[x.to("meta") for x in case])
+    meta = ops.paged_prefill_attention(*[x.to("meta") for x in case])
+    assert (meta.device.type, meta.shape, meta.dtype) == \
+        ("meta", out.shape, out.dtype)
+    assert ops.paged_prefill_attention.launches == before
     with pytest.raises(ValueError):
         ops.paged_prefill_attention(*case, pairing="h_major")
 
