@@ -72,19 +72,30 @@ Phases, each printing one JSON line (several for the kernel cases):
 4. main     — full-width gemma-2b (depth 18, random weights from --seed) in
               bf16 served through AgentRM -> PagedEngineBackend ->
               PagedInferenceEngine -> mixed_step_paged (K1): several agents,
-              two turns each, prompts of a few hundred tokens. Checks every
-              turn completes, no id is -1, one mixed_step_paged call per
-              step, K1 launches == n_layers x steps, a deterministic replay,
-              and profiles a prefill and a decode window.
+              two turns each, prompts of a few hundred tokens, each step one
+              CUDA graph replay (``compile_buckets`` captures every bucket
+              width). Checks every turn completes, no id is -1, one
+              mixed_step_paged call and one replay per step, K1 launches
+              == n_layers x steps, that a fresh engine replaying graphs and
+              one stepping eagerly (``cuda_graphs=False``) give equal
+              tokens on one schedule, and profiles a prefill and a decode
+              window, replayed and eager. Prints the capture seconds and
+              each width's graph-pool bytes.
 5. legacy   — the same agents and prompts through AgentRM ->
               SerializedPagedBackend -> PagedInferenceEngine(megastep=False)
-              (K1 per prefill chunk, K2 per decode step). Checks every turn
-              completes, the launch counts, a deterministic replay, and
-              prints the replay's token agreement with the megastep run.
+              (K1 per prefill chunk, K2 per decode step; the decode a CUDA
+              graph captured at its first call). Checks every turn
+              completes, the launch counts, one replay per decode step
+              after the first, graph against eager tokens on one
+              schedule, and prints the replay's token agreement with the
+              megastep run and both routes' step times.
 6. dense    — AgentRM -> EngineBackend -> InferenceEngine (4 slots,
-              max_len 1024): K3 per prefill, K4 per decode step. Checks every
-              turn completes, the launch counts and a deterministic replay,
-              and profiles a decode step with all 4 slots busy.
+              max_len 1024): K3 per prefill, K4 per decode step (a CUDA
+              graph captured at its first call). Checks every turn
+              completes, the launch counts, one replay per decode step
+              after the first, graph against eager tokens on one schedule,
+              and profiles a decode step with all 4 slots busy, replayed
+              and eager.
 7. serve    — the serving CLI, ``repro_torch.launch.serve.main(argv)`` in
               this process at full gemma-2b (bf16, the CLI's defaults:
               pages of 8, 129 blocks, 4 rows, max_len 192), six runs:
@@ -97,13 +108,15 @@ Phases, each printing one JSON line (several for the kernel cases):
               and the drain's "drained 1", the trace and the dump, one
               dispatch per step, and the launches: K1 = n_layers x steps
               on (a)-(d) and (f), K3 and K4 alone on (e), counted from the
-              AgentRM's construction (after compile_buckets). Then
+              AgentRM's construction (after compile_buckets), one replay
+              per step on (a), (d), (f) and (e)'s decodes. Then
               ``python -m repro_torch.launch.serve --paged --mesh tp=1``
               as a subprocess, and
               at float32, full width, the library's recovery paths against
               a run without faults: a crash restored from the journal, a
               fluid migration mid-decode, a disk-tier hibernate/wake, a
-              poisoned row.
+              poisoned row, and the captured megastep against the eager
+              one, tokens and pools bit for bit.
 8. lockstep — full-width gemma-2b in float32, b=2, s=64: ``forward`` logits
               (K3) against ``decode_step`` fed token by token at a scalar
               cache_len (K4), within 2e-3, and ``prefill`` + ``decode_step``
@@ -145,12 +158,16 @@ Phases, each printing one JSON line (several for the kernel cases):
               starcoder2-7b's full width and depth in bf16: ``main``'s
               AgentRM run without a mesh and at tp 1 (tokens and each
               session's live pages equal bit for bit), at tp 2 and 4
-              (every turn, one call and 4 x max_batch host bytes a step,
-              K1 = 32 x tp x steps; token agreement with tp 1 reported);
-              ``main``'s profile windows at tp 1, 2, 4 (K1 ms per launch,
-              the device time of the per-layer sums of the attention
-              partials); then f32: at a 4-layer cut tp 2 and 4 give the
-              mesh-less tokens, and sessions hibernated at tp 2 continue
+              (every turn, one call, one replay and 4 x max_batch host
+              bytes a step, K1 = 32 x tp x steps; token agreement with
+              tp 1 reported); at tp 2 the replayed step's tokens equal
+              the eager one's; ``main``'s profile windows at tp 1, 2, 4,
+              replayed and eager (K1 ms per launch; the device time of the
+              per-layer sums of the attention partials, eager only);
+              then f32: at a 4-layer cut, without a mesh and at tp 1, 2
+              and 4, the replayed step gives the eager one's tokens and
+              pages bit for bit and the mesh-less tokens, and sessions
+              hibernated at tp 2 continue
               at tp 4 with them; at full depth each tp's live pages after
               the first turns lie within 1e-4 of the largest |value| of
               the mesh-less engine's.
@@ -1063,9 +1080,16 @@ def _agreement(a: dict, b: dict) -> float:
                for x, y in zip(a[key], b[key])) / max(n, 1)
 
 
-def _replay_paged(cfg, params, ekw, tokenize, prompts) -> dict:
+def _tokenize(cfg, text: str):
+    """A prompt as the main path's backend tokenizes it."""
+    from repro_torch.serving import byte_tokenize
+    return byte_tokenize(text, cfg.vocab_size, max_len=PROMPT_CAP)
+
+
+def _replay_paged(cfg, params, ekw, tokenize, prompts, pages=False):
     """A fresh paged engine on a fixed schedule: all first turns together,
-    then all second turns."""
+    then all second turns. Returns the tokens, and with ``pages`` also the
+    sessions' live pages (``_live_pages``)."""
     from repro_torch.serving import PagedInferenceEngine
     eng = PagedInferenceEngine(cfg, params, **ekw)
     eng.compile_buckets()
@@ -1078,7 +1102,49 @@ def _replay_paged(cfg, params, ekw, tokenize, prompts) -> dict:
     eng.run_to_completion(max_steps=4096)
     got.update({(a, 1): list(eng.reqs[r].out_tokens)
                 for a, r in rids.items()})
-    return got
+    return (got, _live_pages(eng)) if pages else got
+
+
+def _graphs_vs_eager(path: str, cfg, params, ekw, tokenize, prompts,
+                     pools_gate: bool) -> dict:
+    """``_replay_paged`` with the captured megastep (the default) and with
+    the eager one (``cuda_graphs=False``): two fresh engines on one
+    schedule. Their tokens must be equal, and with ``pools_gate`` (f32)
+    the sessions' live pages bit for bit; otherwise whether the pages are
+    equal is reported. Returns the graph run's tokens and the reading."""
+    got, got_pages = _replay_paged(cfg, params, ekw, tokenize, prompts,
+                                   pages=True)
+    want, want_pages = _replay_paged(cfg, params,
+                                     {**ekw, "cuda_graphs": False},
+                                     tokenize, prompts, pages=True)
+    err = _pages_err(got_pages, want_pages)
+    if got != want or (pools_gate and err != 0):
+        raise AssertionError(f"{path}: graph replay against the eager "
+                             f"step: token agreement {_agreement(got, want)}"
+                             f", pages {err} apart")
+    return got, {"graph_vs_eager_tokens_equal": True,
+                 "graph_vs_eager_pages_max_abs_diff": err}
+
+
+def _graph_window(path: str, eng, before: dict, steps: int) -> dict:
+    """The captured steps of one engine over a counted window: ``before``
+    is its ``graph_stats()`` at the window's start. Every step of the
+    window is one replay (a key first met in the window runs its warm-up
+    step eagerly, then replays); replays per step is then 1 over the
+    steps after those first calls. Also the seconds its captures took and
+    each key's graph-pool bytes."""
+    st = eng.graph_stats()
+    if not st["cuda_graphs"]:
+        raise AssertionError(f"{path}: the graph route is off")
+    replays = st["replays"] - before.get("replays", 0)
+    first = st["first_calls"] - before.get("first_calls", 0)
+    if replays + first != steps or replays < 1:
+        raise AssertionError(f"{path}: {replays} replays and {first} "
+                             f"first calls over {steps} graph steps")
+    return {"replays": replays, "first_calls_in_window": first,
+            "replays_per_step": replays / (steps - first),
+            "capture_s": st["capture_s"], "graphs": st["graphs"],
+            "pool_growth_bytes": st["pool_growth_bytes"]}
 
 
 def main_phase(torch, cfg, params, prompts, seed: int):
@@ -1096,6 +1162,7 @@ def main_phase(torch, cfg, params, prompts, seed: int):
     rm = AgentRM(backend, AgentRMConfig(detect_after_s=120.0))
     engine.jit_dispatches = 0
     engine.steps_dispatched = 0
+    g0 = engine.graph_stats()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -1110,13 +1177,18 @@ def main_phase(torch, cfg, params, prompts, seed: int):
         raise AssertionError(f"{stats['jit_dispatches_per_step']} "
                              "mixed_step_paged calls per step, expected 1")
     _expect("main", counts, {"K1": cfg.n_layers * stats["steps_dispatched"]})
+    graph = _graph_window("main", engine, g0, stats["steps_dispatched"])
+    if graph["first_calls_in_window"]:
+        raise AssertionError("main: a width was captured mid-traffic, "
+                             "after compile_buckets")
 
-    rep1 = _replay_paged(cfg, params, ekw, backend._tokenize, prompts)
-    rep2 = _replay_paged(cfg, params, ekw, backend._tokenize, prompts)
-    if rep1 != rep2:
-        raise AssertionError("main: two fresh engines on one schedule "
-                             "disagree")
-    profile = profile_steps(torch, cfg, params, ekw, seed)
+    # two fresh engines on one schedule, the captured step and the eager
+    # one: equal tokens (the bf16 pages' equality reported)
+    rep1, versus = _graphs_vs_eager("main", cfg, params, ekw,
+                                    backend._tokenize, prompts, False)
+    profile = {"graphs": profile_steps(torch, cfg, params, ekw, seed),
+               "eager": profile_steps(torch, cfg, params,
+                                      {**ekw, "cuda_graphs": False}, seed)}
     return toks, {
         "agents": N_AGENTS, "turns": len(toks), "failed_turns": 0,
         "tokens_out": n_out, "wall_s": wall, "tokens_per_s": n_out / wall,
@@ -1127,7 +1199,7 @@ def main_phase(torch, cfg, params, prompts, seed: int):
         "launches": counts, "n_layers": cfg.n_layers,
         "trace_buckets": stats["trace_buckets"],
         "padded_token_fraction": stats["padded_token_fraction"],
-        "replay_deterministic": True,
+        "graph": graph, **versus, "replay_deterministic": True,
         "agentrm_vs_replay_token_agreement": _agreement(toks, rep1),
         "profile": profile, "compile_buckets_s": t_compile,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1143,6 +1215,10 @@ def profile_steps(torch, cfg, params, ekw, seed: int, n_bare: int = 6,
     (a step ends when its ids reach the host). A second engine then runs
     the same windows under torch.profiler, ``n`` steps each; it comes
     second because the host stays slower after a profiler session has run.
+    ``ekw`` picks the captured step (the default) or the eager one
+    (``cuda_graphs=False``); under a replay the profiler sees the kernels
+    but no operator's host events, so the host op time is the replay's
+    own and a record_function scope (``tp.partial_sum``) reads 0.
     Device busy time is the profiled steps' kernel and copy time on the
     card, and the idle share holds it against the wall time of those same
     steps; the profiler slows the host, so ``profiled_over_bare`` gives
@@ -1263,6 +1339,7 @@ def legacy_phase(torch, cfg, params, prompts, mega_toks, seed: int):
                                      prompt_tokens=PROMPT_CAP,
                                      new_tokens_jitter=JITTER)
     rm = AgentRM(backend, AgentRMConfig(detect_after_s=120.0))
+    g0 = engine.graph_stats()
     reset_counts()
     t0 = time.perf_counter()
     toks = _drive(rm, prompts)
@@ -1275,27 +1352,34 @@ def legacy_phase(torch, cfg, params, prompts, mega_toks, seed: int):
     chunk_calls = engine.jit_dispatches - decode_calls
     _expect("legacy", counts, {"K1": cfg.n_layers * chunk_calls,
                                "K2": cfg.n_layers * decode_calls})
+    # the decode alone is captured (at its first call); the chunks, which
+    # take their lengths as Python ints, stay eager
+    graph = _graph_window("legacy", engine, g0, decode_calls)
 
-    def tokenize(text):
-        from repro_torch.serving import byte_tokenize
-        return byte_tokenize(text, cfg.vocab_size, max_len=PROMPT_CAP)
-
-    rep1 = _replay_paged(cfg, params, ekw, tokenize, prompts)
-    rep2 = _replay_paged(cfg, params, ekw, tokenize, prompts)
-    if rep1 != rep2:
-        raise AssertionError("legacy: two fresh engines on one schedule "
-                             "disagree")
+    rep1, versus = _graphs_vs_eager("legacy", cfg, params, ekw,
+                                    lambda text: _tokenize(cfg, text),
+                                    prompts, False)
     # step times on a full batch: 8 prompts of 400 tokens, while all
-    # prefill (8 chunk calls a step) and while all decode (1 call a step)
-    eng = PagedInferenceEngine(cfg, params, **ekw)
-    rng = np.random.default_rng(seed)
-    for _ in range(eng.max_batch):
-        eng.submit(rng.integers(1, cfg.vocab_size, 400), max_new_tokens=64)
-    prefill_ms = _timed_steps(eng, 4)
-    while any(r.prefilling for r in eng.active.values()):
+    # prefill (8 chunk calls a step) and while all decode (1 call a step),
+    # with the captured decode and with the eager one
+    windows = {}
+    for route, graphs_on in (("graphs", True), ("eager", False)):
+        eng = PagedInferenceEngine(cfg, params, **ekw,
+                                   cuda_graphs=graphs_on)
+        rng = np.random.default_rng(seed)
+        for _ in range(eng.max_batch):
+            eng.submit(rng.integers(1, cfg.vocab_size, 400),
+                       max_new_tokens=64)
+        prefill_ms = _timed_steps(eng, 4)
+        while any(r.prefilling for r in eng.active.values()):
+            eng.step()
         eng.step()
-    eng.step()
-    decode_ms = _timed_steps(eng, 6)
+        decode_ms = _timed_steps(eng, 6)
+        windows[route] = {
+            "prefill_window_step_ms": prefill_ms,
+            "prefill_window_median_ms": float(np.median(prefill_ms)),
+            "decode_window_step_ms": decode_ms,
+            "decode_window_median_ms": float(np.median(decode_ms))}
     n_out = sum(len(t) for t in toks.values())
     return {
         "turns": len(toks), "failed_turns": 0, "tokens_out": n_out,
@@ -1305,13 +1389,11 @@ def legacy_phase(torch, cfg, params, prompts, mega_toks, seed: int):
         "steps": stats["steps_dispatched"], "chunk_calls": chunk_calls,
         "decode_calls": decode_calls,
         "jit_dispatches_per_step": stats["jit_dispatches_per_step"],
-        "launches": counts, "replay_deterministic": True,
+        "launches": counts, "graph": graph, **versus,
+        "replay_deterministic": True,
         "agentrm_vs_replay_token_agreement": _agreement(toks, rep1),
         "replay_vs_megastep_token_agreement": _agreement(rep1, mega_toks),
-        "prefill_window_step_ms": prefill_ms,
-        "prefill_window_median_ms": float(np.median(prefill_ms)),
-        "decode_window_step_ms": decode_ms,
-        "decode_window_median_ms": float(np.median(decode_ms)),
+        **windows["graphs"], "eager_windows": windows["eager"],
     }
 
 
@@ -1336,6 +1418,7 @@ def dense_phase(torch, cfg, params, prompts):
     engine.submit = recording_submit
     rm = AgentRM(EngineBackend(engine, max_new_tokens=NEW_TOKENS),
                  AgentRMConfig(detect_after_s=120.0))
+    g0 = engine.graph_stats()
     reset_counts()
     t0 = time.perf_counter()
     toks = _drive(rm, prompts)
@@ -1350,39 +1433,58 @@ def dense_phase(torch, cfg, params, prompts):
                              "turns")
     _expect("dense", counts, {"K3": cfg.n_layers * prefills,
                               "K4": cfg.n_layers * decode_steps})
+    # the decode step is captured at its first call; the prefills (one
+    # shape per prompt length) stay eager
+    graph = _graph_window("dense", engine, g0, decode_steps)
 
-    def replay():
-        eng = InferenceEngine(cfg, params, **ekw)
+    def replay(graphs_on):
+        eng = InferenceEngine(cfg, params, **ekw, cuda_graphs=graphs_on)
         rids = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in submitted]
         done = {r.rid: r.out_tokens for r in eng.run_to_completion()}
-        return [done[r] for r in rids]
+        eng.sync()
+        return [done[r] for r in rids], eng.state
 
-    rep1, rep2 = replay(), replay()
+    # two fresh engines on one schedule, the captured decode and the eager
+    # one: equal tokens (the bf16 caches' equality reported)
+    (rep1, state1), (rep2, state2) = replay(True), replay(False)
     if rep1 != rep2:
-        raise AssertionError("dense: two fresh engines disagree")
+        raise AssertionError("dense: the captured decode's tokens differ "
+                             "from the eager one's")
+    cache_diff = max((state1[n].float() - state2[n].float()).abs().max()
+                     .item() for n in state1)
+    del state1, state2
     # the AgentRM run's turns, as a multiset, against the replay's (which
     # turn a lane served first is not fixed)
     same = sorted(map(tuple, toks.values())) == sorted(map(tuple, rep1))
     # step times with all 4 slots busy: the step that admits them (4
-    # prefills of 96 tokens + 1 decode), then decode steps
-    eng = InferenceEngine(cfg, params, **ekw)
-    rng = np.random.default_rng(0)
-    for _ in range(eng.max_slots):
-        eng.submit(rng.integers(1, cfg.vocab_size, 96), max_new_tokens=64)
-    admit_ms = _timed_steps(eng, 1)[0]
-    decode_ms = _timed_steps(eng, 8)
-    profile = _profile_calls(torch, eng.step, n=4)
+    # prefills of 96 tokens + 1 decode), then decode steps; with the
+    # captured decode and the eager one
+    timed = {}
+    for route, graphs_on in (("graphs", True), ("eager", False)):
+        eng = InferenceEngine(cfg, params, **ekw, cuda_graphs=graphs_on)
+        rng = np.random.default_rng(0)
+        for _ in range(eng.max_slots):
+            eng.submit(rng.integers(1, cfg.vocab_size, 96),
+                       max_new_tokens=64)
+        admit_ms = _timed_steps(eng, 1)[0]
+        decode_ms = _timed_steps(eng, 8)
+        timed[route] = {"admit_step_ms": admit_ms,
+                        "decode_step_ms": decode_ms,
+                        "decode_median_ms": float(np.median(decode_ms)),
+                        "profile_decode_step": _profile_calls(
+                            torch, eng.step, n=4)}
     n_out = sum(len(t) for t in toks.values())
     return {
         "turns": len(toks), "failed_turns": 0, "tokens_out": n_out,
         "wall_s": wall, "tokens_per_s": n_out / wall,
         "prompt_tokens": [len(p) for p in submitted],
         "prefills": prefills, "decode_steps": decode_steps,
-        "launches": counts, "replay_deterministic": True,
+        "launches": counts, "graph": graph,
+        "graph_vs_eager_tokens_equal": True,
+        "graph_vs_eager_cache_max_abs_diff": cache_diff,
+        "replay_deterministic": True,
         "agentrm_turns_equal_replay": same,
-        "admit_step_ms": admit_ms, "decode_step_ms": decode_ms,
-        "decode_median_ms": float(np.median(decode_ms)),
-        "profile_decode_step": profile,
+        **timed["graphs"], "eager": timed["eager"],
     }
 
 
@@ -1436,10 +1538,17 @@ def _cli_run(torch, cfg, name: str, argv: list) -> dict:
 
     seen = {}
 
+    def engines_of(backend):
+        if isinstance(backend, FleetBackend):
+            return [m.backend.engine for m in backend.members]
+        return [backend.engine]
+
     class Observed(serve.AgentRM):
         def __init__(self, backend, *a, **kw):
             if isinstance(backend, FleetBackend):
                 _watch_kill(torch, backend, seen)
+            seen["graphs0"] = {id(e): e.graph_stats()
+                               for e in engines_of(backend)}
             reset_counts()
             seen["rm"] = self
             seen["t0"] = time.perf_counter()
@@ -1466,8 +1575,7 @@ def _cli_run(torch, cfg, name: str, argv: list) -> dict:
         raise AssertionError(f"serve {name}: exit code {rc}")
     rm = seen["rm"]
     fleet = rm.backend if isinstance(rm.backend, FleetBackend) else None
-    engines = ([m.backend.engine for m in fleet.members] if fleet
-               else [rm.backend.engine])
+    engines = engines_of(rm.backend)
     names = [e.name for e in engines] if fleet else ["engine"]
     turns = int(argv[argv.index("--turns") + 1]) if "--turns" in argv else 9
     served = re.findall(r"^\[serve\] agent-\d+ -> tok:", text, re.M)
@@ -1489,6 +1597,16 @@ def _cli_run(torch, cfg, name: str, argv: list) -> dict:
                                  f"{steps} steps, the summary says "
                                  f"{said.group(0)}")
         _expect(f"serve {name}", counts, {"K1": cfg.n_layers * steps})
+        if fleet is None:
+            # compile_buckets captured every width before the window
+            row["graph"] = _graph_window(f"serve {name}", engines[0],
+                                         seen["graphs0"][id(engines[0])],
+                                         steps)
+            if row["graph"]["first_calls_in_window"]:
+                raise AssertionError(f"serve {name}: a width was captured "
+                                     "mid-traffic")
+        else:
+            row["graph"] = {e.name: e.graph_stats() for e in engines}
         row.update(steps=steps, **{
             key: _registry_q(m, names, suffix, q) for key, suffix, q in (
                 ("ttft_p95_s", "ttft_s", .95), ("itl_p95_s", "itl_s", .95),
@@ -1501,6 +1619,9 @@ def _cli_run(torch, cfg, name: str, argv: list) -> dict:
                                  f"{turns} turns")
         _expect(f"serve {name}", counts, {"K3": cfg.n_layers * prefills,
                                           "K4": cfg.n_layers * decode_steps})
+        row["graph"] = _graph_window(f"serve {name}", engines[0],
+                                     seen["graphs0"][id(engines[0])],
+                                     decode_steps)
         row.update(prefills=prefills, decode_steps=decode_steps)
     if fleet is not None:
         fs = fleet.fleet_stats()
@@ -1751,6 +1872,30 @@ def _bitexact_checks(torch, cfg32, params) -> dict:
         raise AssertionError(f"poisoned row: {errs}, {got} against {ref}")
     out["poisoned_row"] = {"victim_error": type(errs["victim"]).__name__,
                            "batchmates_equal": True}
+
+    # the captured megastep (each width captured at its first call) against
+    # the eager one on the same turns: tokens and pools bit for bit
+    turns = {f"g{i}": f"graph or eager turn {i} " * (1 + 3 * i)
+             for i in range(4)}
+    runs = {}
+    for graphs_on in (True, False):
+        eng = mk(cuda_graphs=graphs_on)
+        be = PagedEngineBackend(eng, max_new_tokens=10)
+        first, _ = _drive_turns(be, turns)
+        second, _ = _drive_turns(be, {a: "and again " + a for a in turns})
+        torch.cuda.synchronize()
+        runs[graphs_on] = (first, second,
+                           [t[:, 1:].clone() for t in eng.cache.full_pools()],
+                           eng.graph_stats())
+    same_pools = all(torch.equal(a, b)
+                     for a, b in zip(runs[True][2], runs[False][2]))
+    if runs[True][:2] != runs[False][:2] or not same_pools:
+        raise AssertionError("f32 graphs against eager: tokens or pools "
+                             "differ")
+    out["graphs_vs_eager_f32"] = {"tokens_equal": True,
+                                  "pools_bitwise_equal": True,
+                                  "graph": runs[True][3]}
+    del runs
 
     torch.cuda.synchronize()
     counts = read_counts()
@@ -2391,6 +2536,7 @@ def _tp_serve(torch, cfg, params, prompts, tp):
     rm = AgentRM(backend, AgentRMConfig(detect_after_s=120.0))
     engine.jit_dispatches = 0
     engine.steps_dispatched = 0
+    g0 = engine.graph_stats()
     reset_counts()
     t0 = time.perf_counter()
     toks = _drive(rm, prompts)
@@ -2407,8 +2553,12 @@ def _tp_serve(torch, cfg, params, prompts, tp):
                              "bytes per step")
     steps = st["steps_dispatched"]
     _expect(path, counts, {"K1": cfg.n_layers * (tp or 1) * steps})
+    # one graph holds the whole step, every shard's kernels in it
+    graph = _graph_window(path, engine, g0, steps)
+    if graph["first_calls_in_window"]:
+        raise AssertionError(f"{path}: a width was captured mid-traffic")
     n_out = sum(len(t) for t in toks.values())
-    return engine, toks, {
+    return engine, toks, {"graph": graph,
         "tp": tp, "turns": len(toks), "failed_turns": 0, "steps": steps,
         "tokens_out": n_out, "wall_s": wall, "tokens_per_s": n_out / wall,
         "step_p95_s": st["step_p95_s"],
@@ -2464,10 +2614,10 @@ def _tp_f32(torch, cfg, prompts, seed: int) -> dict:
     mesh-less engine's (the sums' order differs), tokens reported."""
     from repro_torch.core.context.tiers import KVSwapStore
     from repro_torch.models.transformer import init_params
-    from repro_torch.serving import PagedInferenceEngine, byte_tokenize
+    from repro_torch.serving import PagedInferenceEngine
 
     def tokenize(text):
-        return byte_tokenize(text, cfg.vocab_size, max_len=PROMPT_CAP)
+        return _tokenize(cfg, text)
 
     def draw(c):
         return init_params(c, generator=torch.Generator(
@@ -2475,11 +2625,14 @@ def _tp_f32(torch, cfg, prompts, seed: int) -> dict:
 
     cut = _f32_cut(cfg, 4)
     params = draw(cut)
-    want = _replay_paged(cut, params, MEGASTEP_ENGINE, tokenize, prompts)
-    for tp in (2, 4):
-        got = _replay_paged(cut, params, {**MEGASTEP_ENGINE,
-                                          "mesh": _tp_mesh(tp)},
-                            tokenize, prompts)
+    # the captured step against the eager one at each tp: tokens and the
+    # sessions' pages bit for bit
+    want = None
+    for tp in (None,) + TP_WIDTHS:
+        ekw = {**MEGASTEP_ENGINE, "mesh": _tp_mesh(tp) if tp else None}
+        got, _ = _graphs_vs_eager(f"tp f32 cut tp {tp}", cut, params, ekw,
+                                  tokenize, prompts, True)
+        want = got if want is None else want
         if got != want:
             raise AssertionError(f"tp f32 cut: tp {tp} tokens differ from "
                                  f"the mesh-less engine's, agreement "
@@ -2531,7 +2684,8 @@ def _tp_f32(torch, cfg, prompts, seed: int) -> dict:
                     "token_agreement": _agreement(toks, want_toks)}
     del params
     _free()
-    return {"cut_layers": 4, "cut_tokens_equal": [2, 4],
+    return {"cut_layers": 4, "cut_tokens_equal": [1, 2, 4],
+            "cut_graph_vs_eager_tokens_and_pages_equal": [None, 1, 2, 4],
             "hibernate_tp2_wake_tp4_equal": True, "full_depth": rows,
             "full_depth_pool_tol": 1e-4 * scale, "full_depth_scale": scale}
 
@@ -2568,15 +2722,28 @@ def tp_phase(torch, prompts, seed: int) -> dict:
         runs[str(tp)] = row
         del eng
         _free()
+    # bf16, full depth, tp 2: the captured step's tokens equal the eager
+    # one's on one schedule
+    _, versus = _graphs_vs_eager(
+        "tp 2 bf16", cfg, params, {**MEGASTEP_ENGINE, "mesh": _tp_mesh(2)},
+        lambda text: _tokenize(cfg, text), prompts, False)
+    runs["2"].update(versus)
+    _free()
+    # the captured step's windows, and the eager step's beside them: under
+    # a replay the per-layer sums' record_function scope has no host
+    # events, so only the eager windows read partial_sum_ms_per_step
     windows = {}
     for tp in TP_WIDTHS:
-        prof = profile_steps(torch, cfg, params, {**MEGASTEP_ENGINE,
-                                                  "mesh": _tp_mesh(tp)}, seed)
-        for w in prof.values():
-            w["k1_ms_per_launch"] = (w["paged_kernel_ms_per_step"]
-                                     / (cfg.n_layers * tp))
-        windows[str(tp)] = prof
-        _free()
+        windows[str(tp)] = {}
+        for route, graphs_on in (("graphs", True), ("eager", False)):
+            prof = profile_steps(torch, cfg, params, {
+                **MEGASTEP_ENGINE, "mesh": _tp_mesh(tp),
+                "cuda_graphs": graphs_on}, seed)
+            for w in prof.values():
+                w["k1_ms_per_launch"] = (w["paged_kernel_ms_per_step"]
+                                         / (cfg.n_layers * tp))
+            windows[str(tp)][route] = prof
+            _free()
     del params
     _free()
     f32 = _tp_f32(torch, cfg, prompts, seed)

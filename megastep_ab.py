@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Two readings of the port's megastep on one GPU, beside ``chip_smoke.py``
-(whose engine, prompts and helpers they use):
+"""Three readings of the port's megastep on one GPU, beside
+``chip_smoke.py`` (whose engine, prompts and helpers they use):
 
     python3 megastep_ab.py [--seed 0] [--rounds 4] [--steps 6]
-                           [--readings write,agreement]
+                           [--readings write,agreement,graphs]
 
 * ``write``: gemma-2b at full width and depth (bf16, random weights from
   ``--seed``), its megastep timed with the port's page write
@@ -19,6 +19,14 @@
   position, for each (dtype, layers, capacity factor) of AGREEMENT. A
   factor of 16 (the expert count, top-1) gives every expert a whole
   group's capacity: no token is dropped, whatever its batchmates.
+* ``graphs``: the eager megastep (``cuda_graphs=False``) against the one
+  replayed from CUDA graphs (the default), in the order eager, graphs,
+  graphs, eager, ``--rounds`` times: gemma-2b's prefill (C = 32) and
+  decode (C = 1) windows as ``write`` times them, then starcoder2-7b at
+  full width and depth at tp 1, 2 and 4 (every shard on the card), each
+  at ``--rounds`` // 2 (at least 1) rounds. Beside the bare host-clock
+  steps, one ``chip_smoke.profile_steps`` per variant gives the device's
+  busy ms per step and its idle share.
 
 Prints one JSON line per reading, then the card's name and power limit.
 Needs a CUDA device.
@@ -82,6 +90,62 @@ def write_ab(torch, seed: int, rounds: int, steps: int) -> dict:
             "steps": steps, **out}
 
 
+def _graph_rounds(torch, cfg, params, ekw, seed: int, rounds: int,
+                  steps: int) -> dict:
+    """Bare step ms of both variants, interleaved eager, graphs, graphs,
+    eager, then one profiled window set each."""
+    variants = {"eager": False, "graphs": True}
+    times = {v: {"prefill": [], "decode": []} for v in variants}
+    for _ in range(rounds):
+        for name in ("eager", "graphs", "graphs", "eager"):
+            for phase, eng in cs.step_windows(
+                    cfg, params, {**ekw, "cuda_graphs": variants[name]},
+                    seed):
+                times[name][phase].append(cs._timed_steps(eng, steps))
+            cs._free()
+    out = {}
+    for name, on in variants.items():
+        prof = cs.profile_steps(torch, cfg, params,
+                                {**ekw, "cuda_graphs": on}, seed)
+        cs._free()
+        for phase, turns in times[name].items():
+            meds = [statistics.median(t) for t in turns]
+            w = prof[phase]
+            out[f"{name}_{phase}"] = {
+                "bare_median_ms": statistics.median(
+                    x for t in turns for x in t),
+                "turn_medians_ms": meds, "spread_ms": [min(meds), max(meds)],
+                "device_busy_ms_per_step": w["device_busy_ms_per_step"],
+                "device_idle_share": w["device_idle_share"],
+                "host_op_ms_per_step": w["host_op_ms_per_step"],
+                "wall_ms_per_step_profiled": w["wall_ms_per_step_profiled"]}
+    return out
+
+
+def graphs_ab(torch, seed: int, rounds: int, steps: int) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    out = {"reading": "graphs", "rounds": rounds, "steps": steps}
+    cfg = get_config("gemma-2b")
+    params = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    out[cfg.name] = _graph_rounds(torch, cfg, params, cs.MEGASTEP_ENGINE,
+                                  seed, rounds, steps)
+    del params
+    cs._free()
+    cfg = get_config("starcoder2-7b")
+    params = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    for tp in cs.TP_WIDTHS:
+        ekw = {**cs.MEGASTEP_ENGINE, "mesh": cs._tp_mesh(tp)}
+        out[f"{cfg.name}_tp{tp}"] = _graph_rounds(
+            torch, cfg, params, ekw, seed, max(rounds // 2, 1), steps)
+    del params
+    cs._free()
+    return out
+
+
 def agreement(torch, seed: int) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models import build
@@ -112,7 +176,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--steps", type=int, default=6)
-    ap.add_argument("--readings", default="write,agreement")
+    ap.add_argument("--readings", default="write,agreement,graphs")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -129,6 +193,8 @@ def main() -> int:
         cs.emit(write_ab(torch, args.seed, args.rounds, args.steps))
     if "agreement" in readings:
         cs.emit(agreement(torch, args.seed))
+    if "graphs" in readings:
+        cs.emit(graphs_ab(torch, args.seed, args.rounds, args.steps))
     print(smi, flush=True)
     return 0
 

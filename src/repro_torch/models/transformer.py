@@ -164,9 +164,10 @@ def _embed(params, tokens, cfg: ModelConfig):
     x = params["embed"][tokens.long()]
     if cfg.tie_embeddings:
         # the scale is rounded to the compute dtype first, as the reference
-        # multiplies by jnp.asarray(d ** 0.5, x.dtype)
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
-                             device=x.device)
+        # multiplies by jnp.asarray(d ** 0.5, x.dtype); a 0-d host tensor
+        # enters the product as a scalar, so no copy to the card is made,
+        # which a CUDA graph capture could not hold
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
 
 

@@ -10,6 +10,13 @@ contiguous (L, max_slots, max_len, hkv, hd) tensor per K and V, updated in
 place. ``extract_slot`` / ``restore_slot`` move one slot's cache as numpy
 arrays in the reference's layout (bf16 as uint16 bits), which is what
 backs CLM hibernation at engine level.
+
+Compiled dispatch (``cuda_graphs``, the counterpart of the reference's
+``jax.jit`` of ``decode_step``): on the card the decode step is one CUDA
+graph (``serving.graphs``), captured at its first call over the engine's
+persistent tensors (the cache ``state``, ``_last_tok``, ``lens``, which
+are only ever written in place, never rebound) and replayed at each later
+step. The prefill stays eager: it takes one shape per prompt length.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import build
 from repro_torch.models.transformer import check_gqa_family
+from repro_torch.serving import graphs
 from repro_torch.weights import numpy_to_torch, torch_to_numpy
 
 
@@ -41,9 +49,22 @@ class InferenceEngine:
     serve examples use)."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 4,
-                 max_len: int = 256, device="cuda"):
+                 max_len: int = 256, device="cuda",
+                 cuda_graphs: Optional[bool] = None):
         check_gqa_family(cfg)
         self.device = resolve_device(device)
+        # None -> a graph of the decode step on the card; False is the
+        # eager step (``jax.disable_jit()``'s counterpart), kept for
+        # same-call A/Bs and parity checks
+        if cuda_graphs is None:
+            cuda_graphs = self.device.type == "cuda"
+        elif cuda_graphs and self.device.type != "cuda":
+            raise ValueError("cuda_graphs=True needs a CUDA device, not "
+                             f"{self.device}")
+        self.cuda_graphs = bool(cuda_graphs)
+        # the captured decode (None: the eager route)
+        self.graphs = (graphs.StepGraphs(self.device) if self.cuda_graphs
+                       else None)
         self.cfg = cfg
         self.model = build(cfg)
         self.params = params
@@ -96,8 +117,8 @@ class InferenceEngine:
         self._admit()
         if not self.active:
             return []
-        logits = self.model.decode_step(self.params, self.state,
-                                        self._last_tok, self.lens)
+        logits = (self._decode() if self.graphs is None
+                  else self.graphs.run("decode", self._decode))
         self.jit_dispatches += 1
         self.steps_dispatched += 1
         slots = torch.tensor([r.slot for r in self.active.values()],
@@ -118,6 +139,12 @@ class InferenceEngine:
                 del self.active[rid]
         return finished
 
+    def _decode(self):
+        """Every slot one token: (max_slots, 1, vocab) f32 logits; the
+        cache is written in place."""
+        return self.model.decode_step(self.params, self.state,
+                                      self._last_tok, self.lens)
+
     def run_to_completion(self, max_steps: int = 512) -> List[Request]:
         done: List[Request] = []
         for _ in range(max_steps):
@@ -131,6 +158,14 @@ class InferenceEngine:
         """Model calls per work-doing iteration (prefills land in the
         admitting step, so a step admitting k prompts costs 1 + k)."""
         return self.jit_dispatches / max(self.steps_dispatched, 1)
+
+    def graph_stats(self) -> Dict:
+        """``cuda_graphs``, and on the graph route the captured decode's
+        calls, replays, capture seconds and graph-pool bytes."""
+        out = {"cuda_graphs": self.cuda_graphs}
+        if self.graphs is not None:
+            out.update(self.graphs.stats())
+        return out
 
     def sync(self):
         """Block until queued state updates have landed."""

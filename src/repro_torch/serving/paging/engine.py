@@ -17,12 +17,20 @@ The port of ``repro.serving.paging.engine`` on its megastep path:
     between steps, ``hibernate``/``wake`` through the host swap tier, and
     ``export_live``/``import_live`` payloads in the reference's layout.
 
-The megastep runs eagerly; on CUDA tensors every layer's attention is the
-hand-written Hopper kernel. ``megastep=False`` keeps the reference's
-legacy loop as the benchmark baseline: one ``prefill_chunk_paged`` call per
-prefilling sequence plus one batched ``decode_step_paged`` call per step,
-with the full (max_batch, vocab) float32 logits crossing to the host and
-sampled there.
+On CUDA tensors every layer's attention is the hand-written Hopper kernel.
+``megastep=False`` keeps the reference's legacy loop as the benchmark
+baseline: one ``prefill_chunk_paged`` call per prefilling sequence plus one
+batched ``decode_step_paged`` call per step, with the full (max_batch,
+vocab) float32 logits crossing to the host and sampled there.
+
+Compiled dispatch (``cuda_graphs``, the counterpart of the reference's
+``jax.jit`` + ``compile_buckets``): on the card, with every shard on one
+device, each megastep bucket width and the legacy loop's decode is one
+CUDA graph (``serving.graphs``), captured by ``compile_buckets`` or at its
+first call and replayed over static, fully restaged inputs; a step is
+then one graph launch. The legacy loop's ``prefill_chunk_paged`` stays
+eager: it takes ``cache_len`` and ``valid`` as Python ints, which a graph
+would freeze and the reference traces as dynamic values.
 
 ``mesh=`` (a ``launch.mesh.make_tp_mesh`` mesh, DESIGN.md §13) makes the
 megastep tensor-parallel: the params are head-permuted and sliced per
@@ -50,6 +58,7 @@ from repro_torch.models import build
 from repro_torch.models import transformer as tr
 from repro_torch.models.transformer import check_gqa_family
 from repro_torch.obs import LATENCY_BUCKETS_S, Observability
+from repro_torch.serving import graphs
 from repro_torch.serving.paging.allocator import (NULL_BLOCK,
                                                   OutOfBlocksError,
                                                   PageTable)
@@ -136,7 +145,8 @@ class PagedInferenceEngine:
                  mesh=None,
                  obs: Optional[Observability] = None,
                  name: str = "engine",
-                 device="cuda"):
+                 device="cuda",
+                 cuda_graphs: Optional[bool] = None):
         check_gqa_family(cfg)
         self.cfg = cfg
         # fleet members get distinct names ("engine0", "engine1", ...) so
@@ -166,11 +176,31 @@ class PagedInferenceEngine:
             validate_tp(cfg, mesh.shape[TP])
             self.tp = mesh.shape[TP]
             self.device = mesh.devices[0]
+        else:
+            self.device = resolve_device(device)
+        # ---- compiled dispatch: None -> graphs on the card when every
+        # shard is on one device (one graph holds the whole tp step);
+        # False is the eager step, as ``jax.disable_jit()`` is the
+        # reference's, kept for same-call A/Bs and parity checks
+        devs = set(mesh.flat_devices) if mesh is not None else {self.device}
+        graphable = self.device.type == "cuda" and len(devs) == 1
+        if cuda_graphs is None:
+            cuda_graphs = graphable
+        elif cuda_graphs and not graphable:
+            raise ValueError(
+                "cuda_graphs=True needs one CUDA device holding every "
+                f"shard, not {sorted(map(str, devs))}")
+        self.cuda_graphs = bool(cuda_graphs)
+        # the engine's captured steps (None: the eager route); a graph
+        # holds raw pool pointers, so _dispatch drops them all when
+        # ``cache.set_pools`` rebinds the pools
+        self.graphs = (graphs.StepGraphs(self.device) if self.cuda_graphs
+                       else None)
+        self._graph_pools: tuple = ()
+        if mesh is not None:
             # head-permute (identity at tp=1) and slice: one param tree
             # per shard
             params = shard_serving_params(cfg, mesh, params)
-        else:
-            self.device = resolve_device(device)
         self.params = params
         self.max_batch = max_batch
         self.max_len = min(max_len, (num_blocks - 1) * block_size)
@@ -306,44 +336,79 @@ class PagedInferenceEngine:
 
     def _build_mega(self):
         """The one call per iteration: ``(toks, lens, valids, tables,
-        poison) -> (max_batch,) int32 ids``, ``mixed_step_paged`` over the
-        shards (one without a mesh), each with its local cfg (head counts
-        divided by tp, ``head_dim`` pinned: a config that leaves it 0
-        derives d_model // n_heads, which would silently grow as the local
-        head count shrinks), its param tree and its pools."""
+        poison) -> (max_batch,) int32 ids`` (poison bool or 0/1),
+        ``mixed_step_paged`` over the shards (one without a mesh), each
+        with its local cfg (head counts divided by tp, ``head_dim`` pinned:
+        a config that leaves it 0 derives d_model // n_heads, which would
+        silently grow as the local head count shrinks), its param tree and
+        the cache's pools as they are at the call (``set_pools`` may have
+        rebound them since)."""
         cfg = self.cfg
         lcfg = cfg.replace(n_heads=cfg.n_heads // self.tp,
                            n_kv_heads=cfg.n_kv_heads // self.tp,
                            head_dim=cfg.resolved_head_dim)
         trees = self.params if self.mesh is not None else [self.params]
-        shards = [tr.Shard(lcfg, p, pools)
-                  for p, pools in zip(trees, self.cache.pools())]
-        return lambda toks, lens, valids, tables, poison=None: \
-            tr.mixed_step_paged(None, None, toks, lens, valids, tables, cfg,
-                                poison, shards=shards)
+
+        def mega(toks, lens, valids, tables, poison):
+            shards = [tr.Shard(lcfg, p, pools)
+                      for p, pools in zip(trees, self.cache.pools())]
+            return tr.mixed_step_paged(None, None, toks, lens, valids,
+                                       tables, cfg, poison.bool(),
+                                       shards=shards)
+        return mega
+
+    def _decode(self, toks, lens, tables):
+        """The legacy loop's batched decode: (max_batch, 1, vocab) f32
+        logits."""
+        return self.model.decode_step_paged(self.params,
+                                            self.cache.pools()[0], toks,
+                                            lens, tables)
+
+    def _dispatch(self, key, fn, arrays: Dict[str, np.ndarray]):
+        """``fn`` over ``arrays``: on the eager route as fresh device
+        tensors, else replayed from ``key``'s captured step (captured at
+        its first call). The captured steps are dropped first if the
+        cache's pools are no longer the tensors they were captured over
+        (``set_pools``), as jit retraces on new buffers."""
+        if self.graphs is None:
+            return fn(**{n: torch.from_numpy(a).to(self.device)
+                         for n, a in arrays.items()})
+        pools = tuple(t.data_ptr() for shard in self.cache.pools()
+                      for t in (shard["k"], shard["v"]))
+        if pools != self._graph_pools:
+            self.graphs.clear()
+            self._graph_pools = pools
+        return self.graphs.run(key, fn, arrays)
+
+    def _null_inputs(self, C: int) -> Dict[str, np.ndarray]:
+        """A megastep's inputs with no live row: every write lands in the
+        null block."""
+        B = self.max_batch
+        return {"toks": np.zeros((B, C), np.int32),
+                "lens": np.zeros((B,), np.int32),
+                "valids": np.zeros((B,), np.int32),
+                "tables": np.full((B, self.max_pages), NULL_BLOCK, np.int32),
+                "poison": np.zeros((B,), np.bool_)}
 
     # ----------------------------------------------------------- public
     def compile_buckets(self):
         """Build and load the kernels, then run the megastep once at every
-        bucket width over all-null page tables with zero valid tokens: the
-        K/V writes land in the reserved null block and the outputs are
-        discarded, so live state is untouched, and serving never pays a
-        kernel build mid-traffic. Idempotent; recorded in
-        ``compiled_buckets``, not in ``trace_buckets`` (which counts only
-        widths live traffic dispatched). Under a mesh every shard writes
-        only its null block. A no-op for the legacy loop, as in the
-        reference: its kernels build at first use."""
+        bucket width over all-null page tables with zero valid tokens (with
+        ``cuda_graphs``, that run is each width's warm-up, and its graph is
+        captured): the K/V writes land in the reserved null block and the
+        outputs are discarded, so live state is untouched, and serving
+        never pays a kernel build or a capture mid-traffic. Idempotent;
+        recorded in ``compiled_buckets``, not in ``trace_buckets`` (which
+        counts only widths live traffic dispatched). Under a mesh every
+        shard writes only its null block. A no-op for the legacy loop, as
+        in the reference: its kernels build, and its decode is captured,
+        at first use."""
         if not self.use_megastep:
             return
         if self.device.type == "cuda":
             pa.load_kernel()
-        B = self.max_batch
-        zeros = torch.zeros((B,), dtype=torch.int32, device=self.device)
-        tables = torch.full((B, self.max_pages), NULL_BLOCK,
-                            dtype=torch.int32, device=self.device)
         for C in self.bucket_set:
-            toks = torch.zeros((B, C), dtype=torch.int32, device=self.device)
-            self._mega(toks, zeros, zeros, tables)
+            self._dispatch(("mega", C), self._mega, self._null_inputs(C))
             self.compiled_buckets.add(C)
         self.sync()
 
@@ -953,29 +1018,21 @@ class PagedInferenceEngine:
         step_real = sum(T for _, T in rows)
         self.tokens_real += step_real
         self.tokens_dispatched += self.max_batch * C
-        toks = np.zeros((self.max_batch, C), np.int32)
-        lens = np.zeros((self.max_batch,), np.int32)
-        valids = np.zeros((self.max_batch,), np.int32)
-        tables = np.full((self.max_batch, self.max_pages), NULL_BLOCK,
-                         np.int32)
-        poison = np.zeros((self.max_batch,), np.bool_)
+        ins = self._null_inputs(C)
         for req, T in rows:
             s = req.slot
             if req.prefilling:
-                toks[s, :T] = req.pending[:T]
+                ins["toks"][s, :T] = req.pending[:T]
             else:
-                toks[s, 0] = req.last_tok
-            lens[s] = req.num_tokens
-            valids[s] = T
-            tables[s] = req.table.padded(self.max_pages)
+                ins["toks"][s, 0] = req.last_tok
+            ins["lens"][s] = req.num_tokens
+            ins["valids"][s] = T
+            ins["tables"][s] = req.table.padded(self.max_pages)
             if req.rid in self._poison_rids:
-                poison[s] = True
-        dev = self.device
-        next_tok = self._mega(
-            torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev),
-            torch.from_numpy(valids).to(dev),
-            torch.from_numpy(tables).to(dev),
-            torch.from_numpy(poison).to(dev))
+                ins["poison"][s] = True
+        next_tok = self._dispatch(("mega", C), self._mega, ins)
+        if self.graphs is not None:
+            self.compiled_buckets.add(C)
         self.jit_dispatches += 1
         self.steps_dispatched += 1
         if any(not r.prefilling for r, _ in rows):
@@ -1085,19 +1142,16 @@ class PagedInferenceEngine:
         decoding = [r for r in decoding
                     if self._grown(r, r.num_tokens + 1)]
         if decoding:
-            lens = np.zeros((self.max_batch,), np.int32)
-            tables = np.full((self.max_batch, self.max_pages), NULL_BLOCK,
-                             np.int32)
-            toks = np.zeros((self.max_batch, 1), np.int32)
+            B = self.max_batch
+            ins = {"toks": np.zeros((B, 1), np.int32),
+                   "lens": np.zeros((B,), np.int32),
+                   "tables": np.full((B, self.max_pages), NULL_BLOCK,
+                                     np.int32)}
             for req in decoding:
-                lens[req.slot] = req.num_tokens
-                tables[req.slot] = req.table.padded(self.max_pages)
-                toks[req.slot, 0] = req.last_tok
-            logits = self.model.decode_step_paged(
-                self.params, self.cache.pools()[0],
-                torch.from_numpy(toks).to(dev),
-                torch.from_numpy(lens).to(dev),
-                torch.from_numpy(tables).to(dev))
+                ins["lens"][req.slot] = req.num_tokens
+                ins["tables"][req.slot] = req.table.padded(self.max_pages)
+                ins["toks"][req.slot, 0] = req.last_tok
+            logits = self._dispatch("decode", self._decode, ins)
             self.jit_dispatches += 1
             self.decode_steps += 1
             self.tokens_real += len(decoding)
@@ -1240,6 +1294,16 @@ class PagedInferenceEngine:
             "step_p95_s": self.h_step.quantile(0.95),
             "trace_events_dropped": self.obs.recorder.dropped,
         }
+
+    def graph_stats(self) -> Dict:
+        """The compiled dispatch: ``cuda_graphs``, and on the graph route
+        the captured steps, how many calls captured (each key's first)
+        and replayed, the capture seconds and each key's graph-pool bytes
+        (``serving.graphs.StepGraphs.stats``)."""
+        out = {"cuda_graphs": self.cuda_graphs}
+        if self.graphs is not None:
+            out.update(self.graphs.stats())
+        return out
 
     def sync(self):
         """Block until every queued pool update has landed — timed regions

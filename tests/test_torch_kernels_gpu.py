@@ -715,3 +715,122 @@ def test_tp_megastep_on_the_card(cuda):
         assert torch.equal(a[:, 1:], b[:, 1:])
     two, toks = run(2)
     assert len(toks) == 8 and min(toks) >= 0
+
+
+# ------------------------------------------------- the compiled dispatch
+
+def _graph_model(cuda, dtype="float32"):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer import init_params
+    cfg = get_smoke_config("gemma-2b").replace(
+        remat=False, n_layers=2, d_model=64, n_heads=8, n_kv_heads=4,
+        head_dim=16, d_ff=128, vocab_size=256, compute_dtype=dtype)
+    return cfg, init_params(cfg, seed=0, device=cuda)
+
+
+GRAPH_KW = dict(num_blocks=65, block_size=8, max_batch=4, max_len=96,
+                prefill_chunk=16, token_budget=16)
+
+
+def _graph_traffic(eng, rebind=False):
+    """Three prompts, the second released mid-turn and a late one taking
+    its slot, then an extend of the first; ``rebind`` swaps the pools for
+    copies (``set_pools``) after the third step. Returns the tokens."""
+    rids = [eng.submit(np.arange(1 + i, 20 + 7 * i) % 256,
+                       max_new_tokens=6, retain=i == 0) for i in range(3)]
+    for _ in range(3):
+        eng.step()
+    if rebind:
+        eng.cache.set_pools([{n: t.clone() for n, t in s.items()}
+                             for s in eng.cache.pools()])
+    eng.release(rids[1])
+    rids[1] = eng.submit(np.arange(40, 52), max_new_tokens=5)
+    out = {r.rid: list(r.out_tokens) for r in eng.run_to_completion()}
+    eng.extend(rids[0], np.arange(30, 38), max_new_tokens=6)
+    eng.run_to_completion()
+    out[rids[0]] += list(eng.reqs[rids[0]].out_tokens)
+    eng.sync()
+    return [out[r] for r in rids]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rebind", [False, True])
+@pytest.mark.parametrize("tp", [0, 1, 2])
+def test_graph_replay_equals_eager_step(cuda, tp, rebind):
+    """f32: the megastep replayed from its graphs (every bucket captured
+    by compile_buckets; after ``set_pools`` recaptured at first use) gives
+    the eager step's tokens and pools bit for bit, without a mesh and at
+    tp 1 and 2 on the one card; one replay per step; the same K1
+    launches."""
+    from repro_torch.launch.mesh import make_tp_mesh
+    from repro_torch.serving import PagedInferenceEngine
+    cfg, params = _graph_model(cuda)
+    runs = {}
+    for graphs_on in (False, True):
+        mesh = make_tp_mesh(tp, devices=[cuda] * tp) if tp else None
+        eng = PagedInferenceEngine(cfg, params, mesh=mesh, device=cuda,
+                                   cuda_graphs=graphs_on, **GRAPH_KW)
+        eng.compile_buckets()
+        before = ops.paged_prefill_attention.launches
+        toks = _graph_traffic(eng, rebind)
+        launches = ops.paged_prefill_attention.launches - before
+        assert launches == cfg.n_layers * max(tp, 1) * eng.steps_dispatched
+        assert eng.jit_dispatches_per_step == 1.0
+        runs[graphs_on] = eng, toks, launches
+    (eager, want, n_eager), (graph, got, n_graph) = runs[False], runs[True]
+    assert got == want and n_graph == n_eager
+    for a, b in zip(graph.cache.full_pools(), eager.cache.full_pools()):
+        assert torch.equal(a[:, 1:], b[:, 1:])
+    st = graph.graph_stats()
+    n_buckets = len(graph.bucket_set)
+    if rebind:
+        # the rebind dropped every graph; each width met after it was
+        # captured at its first call, whose step ran eagerly
+        assert st["first_calls"] > n_buckets
+    else:
+        assert st["first_calls"] == n_buckets
+    assert st["replays"] + st["first_calls"] == \
+        graph.steps_dispatched + n_buckets
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("engine", ["legacy", "dense"])
+def test_graph_decode_launches_per_replay(cuda, engine, dtype):
+    """The legacy loop's decode (K2) and the dense engine's (K4), each
+    captured at its first call: the eager engine's tokens (and at f32 its
+    pools or cache bit for bit), K2 / K4 launched n_layers times a decode
+    step, every decode after the first a replay."""
+    from repro_torch.serving import InferenceEngine, PagedInferenceEngine
+    cfg, params = _graph_model(cuda, dtype)
+    prompts = [np.arange(1 + i, 20 + 7 * i) % 256 for i in range(5)]
+    wrapper = ops.paged_attention if engine == "legacy" \
+        else da.decode_attention
+    runs = {}
+    for graphs_on in (False, True):
+        if engine == "legacy":
+            eng = PagedInferenceEngine(cfg, params, device=cuda,
+                                       megastep=False, cuda_graphs=graphs_on,
+                                       **GRAPH_KW)
+        else:
+            eng = InferenceEngine(cfg, params, max_slots=2, max_len=96,
+                                  device=cuda, cuda_graphs=graphs_on)
+        before = wrapper.launches
+        rids = [eng.submit(p, max_new_tokens=6) for p in prompts]
+        done = {r.rid: list(r.out_tokens) for r in eng.run_to_completion()}
+        eng.sync()
+        decodes = eng.decode_steps if engine == "legacy" \
+            else eng.steps_dispatched
+        assert wrapper.launches - before == cfg.n_layers * decodes
+        state = ([t for s in eng.cache.pools() for t in s.values()]
+                 if engine == "legacy" else list(eng.state.values()))
+        runs[graphs_on] = [done[r] for r in rids], state, eng
+    assert runs[True][0] == runs[False][0]
+    if dtype == "float32":
+        for a, b in zip(runs[True][1], runs[False][1]):
+            assert torch.equal(a, b)
+    eng = runs[True][2]
+    st = eng.graph_stats()
+    decodes = eng.decode_steps if engine == "legacy" \
+        else eng.steps_dispatched
+    assert st["first_calls"] == 1 and st["replays"] == decodes - 1
