@@ -83,19 +83,24 @@ Phases, each printing one JSON line (several for the kernel cases):
               each width's graph-pool bytes.
 5. legacy   — the same agents and prompts through AgentRM ->
               SerializedPagedBackend -> PagedInferenceEngine(megastep=False)
-              (K1 per prefill chunk, K2 per decode step; the decode a CUDA
+              (K1 per prefill chunk, K2 per decode step; the decode and
+              the chunk, its lengths staged on the device, each a CUDA
               graph captured at its first call). Checks every turn
-              completes, the launch counts, one replay per decode step
-              after the first, graph against eager tokens on one
-              schedule, and prints the replay's token agreement with the
-              megastep run and both routes' step times.
+              completes, the launch counts, one replay per chunk and per
+              decode step after the first, graph against eager tokens on
+              one schedule, and prints the replay's token agreement with
+              the megastep run, both routes' step times, and one chunk's
+              bare ms, replayed and eager.
 6. dense    — AgentRM -> EngineBackend -> InferenceEngine (4 slots,
-              max_len 1024): K3 per prefill, K4 per decode step (a CUDA
-              graph captured at its first call). Checks every turn
-              completes, the launch counts, one replay per decode step
-              after the first, graph against eager tokens on one schedule,
-              and profiles a decode step with all 4 slots busy, replayed
-              and eager.
+              max_len 1024): K3 per prefill, K4 per decode step (the
+              decode a CUDA graph captured at its first call, the prefill
+              one per prompt length, copied into the cache at the staged
+              slot). Checks every turn completes, the launch counts, one
+              replay per decode step after the first and per prefill of a
+              length seen before, graph against eager tokens on one
+              schedule, and profiles a decode step with all 4 slots busy
+              and a prefill of 96 tokens, replayed and eager, with the
+              capture seconds and graph count.
 7. serve    — the serving CLI, ``repro_torch.launch.serve.main(argv)`` in
               this process at full gemma-2b (bf16, the CLI's defaults:
               pages of 8, 129 blocks, 4 rows, max_len 192), six runs:
@@ -109,7 +114,8 @@ Phases, each printing one JSON line (several for the kernel cases):
               dispatch per step, and the launches: K1 = n_layers x steps
               on (a)-(d) and (f), K3 and K4 alone on (e), counted from the
               AgentRM's construction (after compile_buckets), one replay
-              per step on (a), (d), (f) and (e)'s decodes. Then
+              per step on (a), (d), (f), and per (e)'s decodes and
+              prefills after each key's first. Then
               ``python -m repro_torch.launch.serve --paged --mesh tp=1``
               as a subprocess, and
               at float32, full width, the library's recovery paths against
@@ -176,17 +182,24 @@ Phases, each printing one JSON line (several for the kernel cases):
               the text), ``init_cross_cache`` + 32 greedy ``decode_step``s
               (K4 self, K3 across at sq 1), a profiled decode step; then
               f32 forward against decode, within 2e-3.
-17. train   — ``repro_torch.launch.train.main(argv)`` in this process:
-              gemma-2b at full width and depth (bf16 compute, f32 master
-              params and AdamW moments, remat on), 4 steps of 8 x 128, no
-              checkpoint: each step's loss, grad norm, ms and peak memory;
-              losses finite, step 0's ce under log(V) + 2, K3 launched
-              2 x 18 x 4 times (forward and remat recompute). mamba2-370m
-              at full width and depth: 6 steps straight, then --fail-at 2
-              --save-every 3 (exit 42) and --resume to 6, final checkpoints
-              equal bit for bit, K5 launched 2 x 48 a step. Then at depth
-              2, one gradient each: wq/wk/wv and the Mamba block's in_proj
-              get a finite non-zero gradient in every layer.
+17. train   — ``repro_torch.launch.train.main(argv)`` in this process,
+              its step one CUDA graph (the first step its warm-up, one
+              replay a step after it): gemma-2b at full width and depth
+              (bf16 compute, f32 master params and AdamW moments, remat
+              on), 4 steps of 8 x 128, no checkpoint: each step's loss,
+              grad norm, ms and peak memory; losses finite, step 0's ce
+              under log(V) + 2, K3 launched 2 x 18 x 4 times (forward and
+              remat recompute). The same 4 steps driven on each route in
+              turn (eager, graphs, graphs, eager) from the same params:
+              losses, grad norms and final params bit for bit, each run's
+              step ms, capture seconds, graph-pool bytes and peak reserved
+              memory, a profiled step per route; an eager step's
+              breakdown. mamba2-370m at full width and depth: 6 steps
+              straight, then --fail-at 2 --save-every 3 (exit 42) and
+              --resume to 6, final checkpoints equal bit for bit, K5
+              launched 2 x 48 a step. Then at depth 2, one gradient each:
+              wq/wk/wv and the Mamba block's in_proj get a finite non-zero
+              gradient in every layer.
 18. dryrun  — ``repro_torch.launch.dryrun`` against the card: (a) every
               ``iter_cells`` cell on the 16x16 and 2x16x16 production
               meshes on meta (64 ok, 16 skipped with the reference's
@@ -223,6 +236,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import threading
@@ -1321,6 +1335,61 @@ def _timed_steps(eng, n: int) -> list:
     return times
 
 
+def _call_ms(fn, n: int = 8) -> list:
+    """Host ms of ``n`` calls of ``fn``, one by one after one warm call
+    (on the graph route the key's capture), each ending with what it
+    reads back on the host."""
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _dispatch_readings(torch, engines: dict, call,
+                       profile: bool = True) -> dict:
+    """One dispatch's bare ms (``_call_ms``) and, with ``profile``, a
+    profile of it (``_profile_calls``), on each route's engine:
+    ``engines`` {route: engine}, ``call(eng)`` the dispatch as a function
+    of nothing that ends with its result on the host."""
+    import numpy as np
+    out = {}
+    for route, eng in engines.items():
+        fn = call(eng)
+        ms = _call_ms(fn)
+        out[route] = {"bare_ms": ms, "bare_median_ms": float(np.median(ms))}
+        if profile:
+            out[route]["profile"] = _profile_calls(torch, fn, n=4)
+    return out
+
+
+def _legacy_chunk(eng, cache_len: int = 160):
+    """The legacy loop's chunk dispatch as ``_step_legacy`` makes it: a
+    full chunk after ``cache_len`` tokens, its last position's logits
+    read back. The table is all null blocks: the writes land in the
+    reserved null block, no session's pages are touched."""
+    import numpy as np
+    C = eng.prefill_chunk
+    ins = {"toks": np.arange(1, C + 1, dtype=np.int32)[None],
+           "cache_len": np.array([cache_len], np.int32),
+           "valid": np.array([C], np.int32),
+           "table": np.zeros((eng.max_pages,), np.int32)}
+    return lambda: eng._dispatch(("chunk", C), eng._chunk, ins)[
+        0, C - 1].cpu()
+
+
+def _dense_prefill(eng, plen: int = 96):
+    """The dense engine's prefill dispatch as ``_admit`` makes it: one
+    prompt of ``plen`` tokens into slot 0, its argmax read back."""
+    import numpy as np
+    ins = {"toks": (np.arange(plen, dtype=np.int32) % 97 + 1)[None],
+           "slot": np.zeros((1,), np.int32)}
+    return lambda: int(eng._dispatch(("prefill", plen), eng._prefill,
+                                     ins)[0, -1].argmax())
+
+
 # -------------------------------------------------------------- legacy
 
 def legacy_phase(torch, cfg, params, prompts, mega_toks, seed: int):
@@ -1352,9 +1421,12 @@ def legacy_phase(torch, cfg, params, prompts, mega_toks, seed: int):
     chunk_calls = engine.jit_dispatches - decode_calls
     _expect("legacy", counts, {"K1": cfg.n_layers * chunk_calls,
                                "K2": cfg.n_layers * decode_calls})
-    # the decode alone is captured (at its first call); the chunks, which
-    # take their lengths as Python ints, stay eager
-    graph = _graph_window("legacy", engine, g0, decode_calls)
+    # the decode and the chunk (one width) are each captured at their
+    # first call: every later chunk and decode is one replay
+    graph = _graph_window("legacy", engine, g0, decode_calls + chunk_calls)
+    if set(engine.graphs.steps) != {"decode",
+                                    ("chunk", ekw["prefill_chunk"])}:
+        raise AssertionError(f"legacy: captured {set(engine.graphs.steps)}")
 
     rep1, versus = _graphs_vs_eager("legacy", cfg, params, ekw,
                                     lambda text: _tokenize(cfg, text),
@@ -1362,10 +1434,10 @@ def legacy_phase(torch, cfg, params, prompts, mega_toks, seed: int):
     # step times on a full batch: 8 prompts of 400 tokens, while all
     # prefill (8 chunk calls a step) and while all decode (1 call a step),
     # with the captured decode and with the eager one
-    windows = {}
+    windows, engines = {}, {}
     for route, graphs_on in (("graphs", True), ("eager", False)):
-        eng = PagedInferenceEngine(cfg, params, **ekw,
-                                   cuda_graphs=graphs_on)
+        eng = engines[route] = PagedInferenceEngine(
+            cfg, params, **ekw, cuda_graphs=graphs_on)
         rng = np.random.default_rng(seed)
         for _ in range(eng.max_batch):
             eng.submit(rng.integers(1, cfg.vocab_size, 400),
@@ -1380,6 +1452,11 @@ def legacy_phase(torch, cfg, params, prompts, mega_toks, seed: int):
             "prefill_window_median_ms": float(np.median(prefill_ms)),
             "decode_window_step_ms": decode_ms,
             "decode_window_median_ms": float(np.median(decode_ms))}
+    # one chunk alone (b 1, C 32, after 160 tokens), replayed and eager;
+    # not profiled: K1 splits the chunk's keys here and merges them with
+    # the kernel K2 merges with, which a profile cannot attribute
+    chunk = _dispatch_readings(torch, engines, _legacy_chunk,
+                               profile=False)
     n_out = sum(len(t) for t in toks.values())
     return {
         "turns": len(toks), "failed_turns": 0, "tokens_out": n_out,
@@ -1394,6 +1471,7 @@ def legacy_phase(torch, cfg, params, prompts, mega_toks, seed: int):
         "agentrm_vs_replay_token_agreement": _agreement(toks, rep1),
         "replay_vs_megastep_token_agreement": _agreement(rep1, mega_toks),
         **windows["graphs"], "eager_windows": windows["eager"],
+        "chunk": chunk,
     }
 
 
@@ -1433,9 +1511,15 @@ def dense_phase(torch, cfg, params, prompts):
                              "turns")
     _expect("dense", counts, {"K3": cfg.n_layers * prefills,
                               "K4": cfg.n_layers * decode_steps})
-    # the decode step is captured at its first call; the prefills (one
-    # shape per prompt length) stay eager
-    graph = _graph_window("dense", engine, g0, decode_steps)
+    # the decode and one prefill per prompt length, each captured at its
+    # first call: every later decode, and every prefill of a length seen
+    # before, is one replay
+    graph = _graph_window("dense", engine, g0, decode_steps + prefills)
+    lengths = sorted({len(p) for p in submitted})
+    if set(engine.graphs.steps) != {"decode"} | {
+            ("prefill", n) for n in lengths}:
+        raise AssertionError(f"dense: captured {list(engine.graphs.steps)}"
+                             f" for prompt lengths {lengths}")
 
     def replay(graphs_on):
         eng = InferenceEngine(cfg, params, **ekw, cuda_graphs=graphs_on)
@@ -1444,11 +1528,11 @@ def dense_phase(torch, cfg, params, prompts):
         eng.sync()
         return [done[r] for r in rids], eng.state
 
-    # two fresh engines on one schedule, the captured decode and the eager
-    # one: equal tokens (the bf16 caches' equality reported)
+    # two fresh engines on one schedule, the captured steps and the eager
+    # ones: equal tokens (the bf16 caches' equality reported)
     (rep1, state1), (rep2, state2) = replay(True), replay(False)
     if rep1 != rep2:
-        raise AssertionError("dense: the captured decode's tokens differ "
+        raise AssertionError("dense: the captured steps' tokens differ "
                              "from the eager one's")
     cache_diff = max((state1[n].float() - state2[n].float()).abs().max()
                      .item() for n in state1)
@@ -1459,9 +1543,10 @@ def dense_phase(torch, cfg, params, prompts):
     # step times with all 4 slots busy: the step that admits them (4
     # prefills of 96 tokens + 1 decode), then decode steps; with the
     # captured decode and the eager one
-    timed = {}
+    timed, engines = {}, {}
     for route, graphs_on in (("graphs", True), ("eager", False)):
-        eng = InferenceEngine(cfg, params, **ekw, cuda_graphs=graphs_on)
+        eng = engines[route] = InferenceEngine(cfg, params, **ekw,
+                                               cuda_graphs=graphs_on)
         rng = np.random.default_rng(0)
         for _ in range(eng.max_slots):
             eng.submit(rng.integers(1, cfg.vocab_size, 96),
@@ -1473,6 +1558,9 @@ def dense_phase(torch, cfg, params, prompts):
                         "decode_median_ms": float(np.median(decode_ms)),
                         "profile_decode_step": _profile_calls(
                             torch, eng.step, n=4)}
+    # one prefill of 96 tokens alone, replayed and eager (it overwrites
+    # slot 0's rows of these engines, which serve nothing after)
+    prefill = _dispatch_readings(torch, engines, _dense_prefill)
     n_out = sum(len(t) for t in toks.values())
     return {
         "turns": len(toks), "failed_turns": 0, "tokens_out": n_out,
@@ -1484,7 +1572,8 @@ def dense_phase(torch, cfg, params, prompts):
         "graph_vs_eager_cache_max_abs_diff": cache_diff,
         "replay_deterministic": True,
         "agentrm_turns_equal_replay": same,
-        **timed["graphs"], "eager": timed["eager"],
+        "prompt_lengths": len(lengths),
+        **timed["graphs"], "eager": timed["eager"], "prefill": prefill,
     }
 
 
@@ -1619,9 +1708,10 @@ def _cli_run(torch, cfg, name: str, argv: list) -> dict:
                                  f"{turns} turns")
         _expect(f"serve {name}", counts, {"K3": cfg.n_layers * prefills,
                                           "K4": cfg.n_layers * decode_steps})
+        # the decodes and the prefills (one graph per prompt length)
         row["graph"] = _graph_window(f"serve {name}", engines[0],
                                      seen["graphs0"][id(engines[0])],
-                                     decode_steps)
+                                     decode_steps + prefills)
         row.update(prefills=prefills, decode_steps=decode_steps)
     if fleet is not None:
         fs = fleet.fleet_stats()
@@ -2842,9 +2932,17 @@ TRAIN_DIR = ROOT / "build" / "train"      # the resume runs' checkpoints
 def _train_cli(torch, name: str, argv: list) -> dict:
     """``repro_torch.launch.train.main(argv)`` in this process; every step's
     metrics (loss, ce, grad_norm, host seconds) with the card's peak
-    allocated memory so far."""
+    allocated memory so far, and the graph stats of the train step the CLI
+    built (its default route on the card: the first step the warm-up, one
+    replay a step after it)."""
     from repro_torch.launch import train
     steps = []
+    made = []
+    make = train.make_train_step
+
+    def recording_make(*a, **kw):
+        made.append(make(*a, **kw))
+        return made[-1]
 
     def on_step(m):
         steps.append({**{k: v for k, v in m.items() if k != "seconds"},
@@ -2852,35 +2950,137 @@ def _train_cli(torch, name: str, argv: list) -> dict:
                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
 
     torch.cuda.reset_peak_memory_stats()
-    rc = train.main(argv + ["--device", "cuda", "--log-every", "1"],
-                    on_step=on_step)
+    train.make_train_step = recording_make
+    try:
+        rc = train.main(argv + ["--device", "cuda", "--log-every", "1"],
+                        on_step=on_step)
+    finally:
+        train.make_train_step = make
     for m in steps:
         if not all(math.isfinite(m[k]) for k in ("loss", "ce", "grad_norm")):
             raise AssertionError(f"train {name}: step {m['step']} not "
                                  f"finite: {m}")
-    return {"rc": rc, "steps": steps}
+    graph = made[0].graph_stats()
+    if not graph["cuda_graphs"] or graph["first_calls"] != 1 \
+            or graph["replays"] != len(steps) - 1:
+        raise AssertionError(f"train {name}: {len(steps)} steps, graphs "
+                             f"{graph}: expected one capture, then one "
+                             "replay a step")
+    return {"rc": rc, "steps": steps, "graph": graph}
 
 
 def _train_summary(run: dict) -> dict:
-    """A CLI run's exit code and per-step losses, grad norms and ms, and
-    its peak memory."""
+    """A CLI run's exit code and per-step losses, grad norms and ms, its
+    peak memory and its train step's graph stats."""
     steps = run["steps"]
     return {"rc": run["rc"], "first_step": steps[0]["step"],
             **{k: [m[k] for m in steps] for k in ("loss", "grad_norm",
                                                  "ms")},
-            "peak_gb": max(m["peak_gb"] for m in steps)}
+            "peak_gb": max(m["peak_gb"] for m in steps),
+            "graph": run["graph"]}
+
+
+TRAIN_ROUTES = (False, True, True, False)   # cuda_graphs, in turn
+
+
+def _train_routes(torch, arch: str, seed: int, b: int = 8, s: int = 128,
+                  steps: int = 4) -> dict:
+    """The train step as the CLI runs it (deterministic algorithms; params
+    from ``seed``, the CLI's data stream), ``steps`` steps from fresh
+    params on each route in turn: eager, graphs, graphs, eager
+    (``TRAIN_ROUTES``; the host's speed drifts within a call). Every run's
+    losses, grad norms and final params (kept from the first run, on the
+    card) equal bit for bit; on the graph route one capture, then one
+    replay a step. The first run's final params wait on the host, so
+    every run starts from the same free card. Per run: each step's host
+    ms (ending with its loss on the host), the capture seconds and
+    graph-pool bytes, the peak reserved and allocated memory; then one
+    profiled step on each route."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.tree import leaves
+    cfg = get_config(arch)
+    model = build(cfg)
+    ocfg = opt.AdamWConfig()
+    data = SyntheticLM(cfg, b, s, seed=seed, device="cuda")
+    kernel = "K5" if cfg.family == "ssm" else "K3"
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    runs, want, profiles = [], None, {}
+    try:
+        for i, graphs_on in enumerate(TRAIN_ROUTES):
+            _free()
+            torch.cuda.reset_peak_memory_stats()
+            params = model.init_train_params(seed=seed, device="cuda")
+            state = opt.init(params, ocfg)
+            step = make_train_step(cfg, ocfg, cuda_graphs=graphs_on)
+            reset_counts()
+            ms, loss, gnorm = [], [], []
+            for k in range(steps):
+                batch = data.batch_at(k)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, batch)
+                loss.append(float(m["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+                gnorm.append(float(m["grad_norm"]))
+            counts = read_counts()
+            _expect(f"train routes {arch}", counts,
+                    {kernel: 2 * cfg.n_layers * steps})
+            run = {"cuda_graphs": graphs_on, "step_ms": ms, "loss": loss,
+                   "grad_norm": gnorm, "launches": counts,
+                   "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+                   "peak_allocated_gb":
+                       torch.cuda.max_memory_allocated() / 1e9,
+                   "graph": step.graph_stats()}
+            if graphs_on and (run["graph"]["first_calls"] != 1
+                              or run["graph"]["replays"] != steps - 1):
+                raise AssertionError(f"train routes {arch}: graphs "
+                                     f"{run['graph']}")
+            final = leaves(params)
+            if want is None:
+                want = (loss, gnorm, [a.cpu() for a in final])
+            else:
+                same = [a.dtype == w.dtype and torch.equal(a, w.to(a.device))
+                        for a, w in zip(final, want[2])]
+                if (loss, gnorm) != want[:2] or not all(same):
+                    raise AssertionError(
+                        f"train routes {arch}: run {i} (cuda_graphs="
+                        f"{graphs_on}) against run 0: losses {loss} / "
+                        f"{want[0]}, grad norms {gnorm} / {want[1]}, "
+                        f"{same.count(False)} param leaves differ")
+            route = "graphs" if graphs_on else "eager"
+            if route not in profiles and i:
+                profiles[route] = _profile_calls(
+                    torch, lambda: step(params, state, batch), n=1)
+            runs.append(run)
+            del params, state, step, final, m
+    finally:
+        torch.use_deterministic_algorithms(was)
+    del want
+    _free()
+    median = {r: statistics.median(ms for run in runs
+                                   if run["cuda_graphs"] == (r == "graphs")
+                                   for ms in run["step_ms"][1:])
+              for r in ("eager", "graphs")}
+    return {"arch": arch, "b": b, "s": s, "steps": steps,
+            "order": ["graphs" if g else "eager" for g in TRAIN_ROUTES],
+            "bitwise_equal": True, "runs": runs,
+            "median_step_ms_after_first": median, "profile": profiles}
 
 
 def _train_breakdown(torch, arch: str, seed: int, b: int = 8,
                      s: int = 128, reps: int = 3) -> dict:
-    """Where a train step's time goes, at full width and depth, as the CLI
-    runs it (deterministic algorithms): host ms (median of ``reps``, each
+    """Where an eager train step's time goes, at full width and depth
+    (deterministic algorithms, as the CLI runs): host ms (median of ``reps``, each
     ending in a synchronize) of the loss's forward alone (its graph
     built), of forward + backward (``value_and_grad``) and of the whole
     step (+ clip and AdamW); the backward's share of the step; then one
     step under torch.profiler: device busy, idle share, K3/K5 device ms,
     the top kernels."""
-    import statistics
     from repro_torch.configs import get_config
     from repro_torch.models import build
     from repro_torch.training import optimizer as opt
@@ -2893,7 +3093,7 @@ def _train_breakdown(torch, arch: str, seed: int, b: int = 8,
     params = model.init_train_params(seed=seed, device="cuda")
     state = opt.init(params, opt.AdamWConfig())
     batch = SyntheticLM(cfg, b, s, seed=seed, device="cuda").batch_at(0)
-    step = make_train_step(cfg)
+    step = make_train_step(cfg, cuda_graphs=False)
     grad_fn = value_and_grad(model.loss)
 
     def forward():
@@ -2983,16 +3183,20 @@ def _ckpt_leaves(path: Path) -> dict:
 
 def train_phase(torch, seed: int) -> dict:
     """The training path on the card (``repro_torch.launch.train``, in
-    this process). gemma-2b at full width and depth (18 layers, 2.51 B
-    params; bf16 compute, f32 master params and AdamW moments, remat on):
-    4 steps of batch 8 x 128, no checkpoint (one would be ~30 GB); every
-    loss and grad norm finite, step 0's ce under log(V) + 2, K3 launched
-    2 x 18 x 4 times (forward and remat recompute). mamba2-370m at full
-    width and depth (48 layers): 6 steps straight, then ``--fail-at 2
-    --save-every 3`` (exit 42) and ``--resume`` to 6: the final
-    checkpoints equal bit for bit, K5 launched 2 x 48 a step. Then at
-    full width, depth 2, the gradients reach what sits before each
-    kernel."""
+    this process; its step one CUDA graph, replayed from the second step
+    on). gemma-2b at full width and depth (18 layers, 2.51 B params; bf16
+    compute, f32 master params and AdamW moments, remat on): 4 steps of
+    batch 8 x 128, no checkpoint (one would be ~30 GB); every loss and
+    grad norm finite, step 0's ce under log(V) + 2, K3 launched 2 x 18 x
+    4 times (forward and remat recompute). Then the same 4 steps driven
+    directly on each route in turn (``_train_routes``: eager, graphs,
+    graphs, eager), equal bit for bit and to the CLI's losses, and an
+    eager step's breakdown. mamba2-370m at full width and depth (48
+    layers), on the graph route: 6 steps straight, then ``--fail-at 2
+    --save-every 3`` (exit 42) and ``--resume`` to 6 (captured anew over
+    the restored trees): the final checkpoints equal bit for bit, K5
+    launched 2 x 48 a step. Then at full width, depth 2, the gradients
+    reach what sits before each kernel."""
     import shutil
     from repro_torch.configs import get_config
 
@@ -3017,6 +3221,14 @@ def train_phase(torch, seed: int) -> dict:
                        "log_v_plus_2": math.log(cfg.vocab_size) + 2.0,
                        **_train_summary(run)}
     _free()
+    routes = _train_routes(torch, "gemma-2b", seed)
+    cli_loss = [m["loss"] for m in run["steps"]]
+    if routes["runs"][0]["loss"] != cli_loss:
+        raise AssertionError(f"train gemma-2b: the CLI's losses {cli_loss} "
+                             f"against the direct step's "
+                             f"{routes['runs'][0]['loss']}")
+    emit({"phase": "train_routes", **routes})
+    out["gemma-2b"]["routes"] = routes
     out["gemma-2b"]["breakdown"] = _train_breakdown(torch, "gemma-2b", seed)
     emit({"phase": "train_breakdown", **out["gemma-2b"]["breakdown"]})
     _free()

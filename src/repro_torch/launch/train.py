@@ -13,9 +13,13 @@ Without ``--device`` it runs on the card (and raises where there is none).
   * ``--fail-at N`` simulates a node failure after step N (exit code 42),
   * ``--compress-grads``: bf16 gradients with error feedback.
 
-On the card the run is deterministic, so a resumed run ends on the same
-bits as an uninterrupted one: ``torch.use_deterministic_algorithms(True)``
-(for the run; the caller's setting is restored on return) with
+On the card the step is one CUDA graph (``training.train_step``, the
+counterpart of the reference's ``jax.jit``): the first step runs eagerly
+and is captured, every later one replays it; ``--resume`` captures over
+the restored trees. A capture or replay that fails raises. The run is
+deterministic, so a resumed run ends on the same bits as an
+uninterrupted one: ``torch.use_deterministic_algorithms(True)`` (for the
+run; the caller's setting is restored on return) with
 ``CUBLAS_WORKSPACE_CONFIG`` set before the first CUDA call.
 """
 from __future__ import annotations

@@ -168,29 +168,42 @@ def gqa_decode_paged(params, x, k_pool, v_pool, page_tables, cache_len,
     return o.reshape(b, 1, -1) @ params["wo"]
 
 
+def row_lengths(n, device) -> torch.Tensor:
+    """``n`` as a (1,) int32 tensor on ``device``: an int is filled in on
+    the device (no host-to-device copy, which a CUDA graph could not
+    hold), a tensor of one element is viewed as (1,) and kept."""
+    if isinstance(n, torch.Tensor):
+        return n.reshape(1).to(device=device, dtype=torch.int32)
+    return torch.full((1,), n, dtype=torch.int32, device=device)
+
+
 def gqa_prefill_chunk_paged(params, x, k_pool, v_pool, page_table, cache_len,
                             valid, cfg: ModelConfig):
     """Chunked prefill of ONE sequence over the paged pools. x: (1, C, d);
     pools as for ``gqa_decode_paged``, UPDATED IN PLACE; page_table:
-    (npages,) int32; cache_len/valid: ints, the tokens resident before the
-    chunk and how many of its C positions are real (padding writes go to
-    the null block). The reference attends over gathered pages with
-    ``q_offset = cache_len`` and ``kv_len = cache_len + valid``; that is
-    the chunked-prefill kernel's mask (K1) at b = 1, which runs here."""
+    (npages,) int32; cache_len/valid: (1,) int32 device tensors (or ints),
+    the tokens resident before the chunk and how many of its C positions
+    are real (padding writes go to the null block). Positions, scatter
+    targets and the mask are computed on the device, so the step may be
+    captured with its lengths staged. The reference attends over gathered
+    pages with ``q_offset = cache_len`` and ``kv_len = cache_len + valid``;
+    that is the chunked-prefill kernel's mask (K1) at b = 1, which runs
+    here."""
     _, C, _ = x.shape
     blk = k_pool.shape[1]
     npages = page_table.shape[0]
     dev = x.device
-    pos = cache_len + torch.arange(C, device=dev)
+    lens = row_lengths(cache_len, dev)
+    valids = row_lengths(valid, dev)
+    cols = torch.arange(C, device=dev, dtype=torch.int32)
+    pos = lens + cols                                           # (C,)
     q, k, v = _qkv(params, x, pos, cfg)
-    live = torch.arange(C, device=dev) < valid
-    page_idx = torch.clamp(pos // blk, 0, npages - 1)
+    live = cols < valids
+    page_idx = torch.clamp(pos // blk, 0, npages - 1).long()
     bids = torch.where(live, page_table[page_idx],
                        torch.zeros_like(page_table[:1])).long()
     offs = (pos % blk).long()
     _write_pages(k_pool, v_pool, bids, offs, k[0], v[0])
-    lens = torch.tensor([cache_len], dtype=torch.int32, device=dev)
-    valids = torch.tensor([valid], dtype=torch.int32, device=dev)
     o = pa.paged_prefill_attention(q.contiguous(), k_pool, v_pool, lens,
                                    valids, page_table[None],
                                    pairing=_pairing(cfg))

@@ -409,14 +409,19 @@ def decode_step_paged(params, pools: Dict, token, cache_len, page_tables,
     return _unembed(params, rms_norm(x, params["final_norm"], cfg.norm_eps))
 
 
-def prefill_chunk_paged(params, pools: Dict, tokens, cache_len: int,
-                        valid: int, page_table, cfg: ModelConfig):
+def prefill_chunk_paged(params, pools: Dict, tokens, cache_len, valid,
+                        page_table, cfg: ModelConfig):
     """Chunked prefill of one sequence over the paged pools: tokens (1, C)
-    int32, null-padded past ``valid``; cache_len: the tokens resident
-    before the chunk; page_table (npages,) int32. The chunk's K/V is
+    int32, null-padded past ``valid``; cache_len and valid: (1,) int32
+    device tensors or ints, the tokens resident before the chunk and the
+    chunk's real tokens; page_table (npages,) int32. The chunk's K/V is
     written into the sequence's pages in place. Returns logits (1, C, V)
-    float32 (the caller reads position ``valid - 1``)."""
+    float32 (the caller reads position ``valid - 1``). Nothing here reads
+    the lengths on the host, so the legacy loop captures the call once per
+    chunk width."""
     x = _embed(params, tokens, cfg)
+    cache_len = attn_mod.row_lengths(cache_len, x.device)
+    valid = attn_mod.row_lengths(valid, x.device)
     for li, lp in enumerate(params["layers"]):
         hh = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         x = x + attn_mod.gqa_prefill_chunk_paged(

@@ -12,11 +12,15 @@ arrays in the reference's layout (bf16 as uint16 bits), which is what
 backs CLM hibernation at engine level.
 
 Compiled dispatch (``cuda_graphs``, the counterpart of the reference's
-``jax.jit`` of ``decode_step``): on the card the decode step is one CUDA
-graph (``serving.graphs``), captured at its first call over the engine's
-persistent tensors (the cache ``state``, ``_last_tok``, ``lens``, which
-are only ever written in place, never rebound) and replayed at each later
-step. The prefill stays eager: it takes one shape per prompt length.
+``jax.jit`` of ``decode_step`` and of its prefill): on the card the decode
+step is one CUDA graph (``serving.graphs``), captured at its first call
+over the engine's persistent tensors (the cache ``state``, ``_last_tok``,
+``lens``, which are only ever written in place, never rebound) and
+replayed at each later step. The prefill is one graph per prompt length,
+as jit compiles one per length: the prompt prefills into a one-row
+scratch state of its length, which the same graph then copies into the
+cache at the staged slot index (the reference's ``dynamic_update_slice``
+of its prefill state). The graphs share the engine's one memory pool.
 """
 from __future__ import annotations
 
@@ -53,16 +57,16 @@ class InferenceEngine:
                  cuda_graphs: Optional[bool] = None):
         check_gqa_family(cfg)
         self.device = resolve_device(device)
-        # None -> a graph of the decode step on the card; False is the
-        # eager step (``jax.disable_jit()``'s counterpart), kept for
-        # same-call A/Bs and parity checks
+        # None -> graphs of the decode step and the prefills on the card;
+        # False is the eager step (``jax.disable_jit()``'s counterpart),
+        # kept for same-call A/Bs and parity checks
         if cuda_graphs is None:
             cuda_graphs = self.device.type == "cuda"
         elif cuda_graphs and self.device.type != "cuda":
             raise ValueError("cuda_graphs=True needs a CUDA device, not "
                              f"{self.device}")
         self.cuda_graphs = bool(cuda_graphs)
-        # the captured decode (None: the eager route)
+        # the captured decode and prefills (None: the eager route)
         self.graphs = (graphs.StepGraphs(self.device) if self.cuda_graphs
                        else None)
         self.cfg = cfg
@@ -98,12 +102,10 @@ class InferenceEngine:
             slot = self.free_slots.pop(0)
             req.slot = slot
             plen = len(req.prompt)
-            # prefill writes its K/V straight into this slot's cache rows
-            view = {name: c[:, slot:slot + 1]
-                    for name, c in self.state.items()}
-            logits = self.model.prefill(
-                self.params, torch.from_numpy(req.prompt[None]).to(
-                    self.device), state=view)
+            logits = self._dispatch(
+                ("prefill", plen), self._prefill,
+                {"toks": req.prompt[None].astype(np.int32),
+                 "slot": np.array([slot], np.int32)})
             self.jit_dispatches += 1
             self.lens[slot] = plen
             tok = int(torch.argmax(logits[0, -1]))
@@ -117,8 +119,7 @@ class InferenceEngine:
         self._admit()
         if not self.active:
             return []
-        logits = (self._decode() if self.graphs is None
-                  else self.graphs.run("decode", self._decode))
+        logits = self._dispatch("decode", self._decode)
         self.jit_dispatches += 1
         self.steps_dispatched += 1
         slots = torch.tensor([r.slot for r in self.active.values()],
@@ -138,6 +139,27 @@ class InferenceEngine:
                 self.free_slots.append(req.slot)
                 del self.active[rid]
         return finished
+
+    def _dispatch(self, key, fn, arrays: Optional[Dict] = None):
+        """``fn`` over ``arrays`` (numpy; None: ``fn()``): on the eager
+        route as fresh device tensors, else replayed from ``key``'s
+        captured step (captured at its first call)."""
+        if self.graphs is None:
+            return fn(**{n: torch.from_numpy(a).to(self.device)
+                         for n, a in (arrays or {}).items()})
+        return self.graphs.run(key, fn, arrays)
+
+    def _prefill(self, toks, slot):
+        """One prompt (1, plen) into a fresh one-row state of its length,
+        then that row into the cache at ``slot`` ((1,) int32 on the device)
+        over positions [0, plen): the last position's (1, 1, vocab) f32
+        logits."""
+        plen = toks.shape[1]
+        pre = self.model.init_decode_state(1, plen, device=self.device)
+        logits = self.model.prefill(self.params, toks, state=pre)
+        for name, c in self.state.items():
+            c[:, :, :plen].index_copy_(1, slot.long(), pre[name])
+        return logits
 
     def _decode(self):
         """Every slot one token: (max_slots, 1, vocab) f32 logits; the
@@ -160,8 +182,9 @@ class InferenceEngine:
         return self.jit_dispatches / max(self.steps_dispatched, 1)
 
     def graph_stats(self) -> Dict:
-        """``cuda_graphs``, and on the graph route the captured decode's
-        calls, replays, capture seconds and graph-pool bytes."""
+        """``cuda_graphs``, and on the graph route the captured steps
+        (the decode and one prefill per prompt length): graphs, first
+        calls, replays, capture seconds and graph-pool bytes per key."""
         out = {"cuda_graphs": self.cuda_graphs}
         if self.graphs is not None:
             out.update(self.graphs.stats())

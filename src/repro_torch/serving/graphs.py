@@ -1,6 +1,8 @@
 """Captured steps: the port's counterpart of the reference's ``jax.jit``
-over its fixed-shape serving dispatches (the megastep at each bucket
-width, the legacy loop's decode, the dense engine's decode).
+over its fixed-shape dispatches: the serving megastep at each bucket
+width, the legacy loop's decode and chunk prefill (one per chunk width),
+the dense engine's decode and prefill (one per prompt length), and the
+train step (``training.train_step``: loss, gradients, clip and AdamW).
 
 A ``CapturedStep`` records one call of a step function as a CUDA graph
 (``torch.cuda.graph``) and replays it: a step is then one graph launch,
@@ -12,6 +14,9 @@ step launches each from Python.
     arguments, and one host twin (pinned on the card), so that staging a
     step is one host write and one H2D copy. Every stage overwrites every
     element: a narrow step never sees a wider step's stale rows.
+    ``StaticTensors`` is the route for inputs that are already tensors of
+    any dtype (a training batch: int32 tokens, float32 patch or frame
+    embeddings): one static tensor each, staged by a copy on the device.
   * ``warm_up`` runs the function once eagerly, on the capture's side
     stream, before it is captured: the first call of a key is its warm-up
     and gives that call's result, as ``jax.jit`` traces, compiles and runs
@@ -99,6 +104,39 @@ class StaticInputs:
             self._copied.record()
 
 
+class StaticTensors:
+    """One call signature's tensor inputs ``{name: tensor}``, each kept in
+    its own shape and dtype as one static tensor on ``device``;
+    ``views[name]`` is that tensor. ``stage`` copies each input in on the
+    current stream (device to device where the input lies on the card)."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor], device):
+        self.device = torch.device(device)
+        self.views: Dict[str, torch.Tensor] = {
+            n: torch.empty(t.shape, dtype=t.dtype, device=self.device)
+            for n, t in tensors.items()}
+
+    def stage(self, tensors: Dict[str, torch.Tensor]) -> None:
+        if tensors.keys() != self.views.keys():
+            raise ValueError(f"inputs {sorted(tensors)}, expected "
+                             f"{sorted(self.views)}")
+        for name, t in tensors.items():
+            v = self.views[name]
+            if t.shape != v.shape or t.dtype != v.dtype:
+                raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, "
+                                 f"expected {tuple(v.shape)} {v.dtype}")
+        for name, t in tensors.items():
+            self.views[name].copy_(t)
+
+
+def static_inputs(arrays: Dict, device):
+    """The static inputs for ``arrays``: ``StaticTensors`` where every
+    value is a tensor, else ``StaticInputs`` over the numpy arrays."""
+    if all(isinstance(a, torch.Tensor) for a in arrays.values()):
+        return StaticTensors(arrays, device)
+    return StaticInputs({n: a.shape for n, a in arrays.items()}, device)
+
+
 def warm_up(fn: Callable, device, stream=None):
     """``fn()`` run eagerly; on the card on ``stream`` (the capture's side
     stream), ordered after and before the current stream's work."""
@@ -157,13 +195,14 @@ def pool_bytes(device, pool) -> Optional[int]:
 
 
 class CapturedStep:
-    """``fn(**inputs.views)`` (``fn()`` without inputs) captured with
-    ``capture``; calling it stages the arrays, replays and returns the
+    """``fn(**inputs.views)`` (``fn()`` without inputs; ``inputs`` a
+    ``StaticInputs`` or ``StaticTensors``) captured with ``capture``;
+    calling it stages the arrays, replays and returns the
     output. ``launch_delta`` {wrapper: launches per replay},
     ``capture_s`` and ``pool_growth`` (bytes the capture added to the
     pool on the card, None elsewhere) describe it."""
 
-    def __init__(self, fn: Callable, inputs: Optional[StaticInputs],
+    def __init__(self, fn: Callable, inputs,
                  device, *, capture=capture_cuda, pool=None, stream=None):
         self.inputs = inputs
         views = inputs.views if inputs is not None else {}
@@ -185,7 +224,7 @@ class CapturedStep:
                             if None not in (before_pool, after_pool)
                             else None)
 
-    def __call__(self, arrays: Optional[Dict[str, np.ndarray]] = None):
+    def __call__(self, arrays: Optional[Dict] = None):
         if self.inputs is not None:
             self.inputs.stage(arrays)
         out = self.graph.replay()
@@ -199,7 +238,8 @@ class StepGraphs:
     side stream on the card. ``run(key, fn, arrays)`` replays the key's
     step, or at its first call stages ``arrays``, warms ``fn`` up (that
     call's result) and captures it. ``fn`` takes the arrays' names as
-    keyword tensors; ``arrays`` None means ``fn()`` reads persistent
+    keyword tensors; ``arrays`` (numpy int32 arrays, or tensors of any
+    dtype: ``static_inputs``) None means ``fn()`` reads persistent
     tensors of its own. ``capture`` is ``capture_cuda`` on the card,
     ``capture_eager`` for the staged route on the CPU. The counts in
     ``stats()`` run over the object's life, across ``clear()``."""
@@ -223,15 +263,14 @@ class StepGraphs:
         self.pool = torch.cuda.graph_pool_handle() if self.on_card else None
 
     def run(self, key, fn: Callable,
-            arrays: Optional[Dict[str, np.ndarray]] = None):
+            arrays: Optional[Dict] = None):
         step = self.steps.get(key)
         if step is not None:
             self.replays += 1
             return step(arrays)
         inputs = None
         if arrays is not None:
-            inputs = StaticInputs({n: a.shape for n, a in arrays.items()},
-                                  self.device)
+            inputs = static_inputs(arrays, self.device)
             inputs.stage(arrays)
         views = inputs.views if inputs is not None else {}
         out = warm_up(lambda: fn(**views), self.device, self.stream)

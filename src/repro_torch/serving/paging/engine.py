@@ -25,12 +25,12 @@ vocab) float32 logits crossing to the host and sampled there.
 
 Compiled dispatch (``cuda_graphs``, the counterpart of the reference's
 ``jax.jit`` + ``compile_buckets``): on the card, with every shard on one
-device, each megastep bucket width and the legacy loop's decode is one
-CUDA graph (``serving.graphs``), captured by ``compile_buckets`` or at its
-first call and replayed over static, fully restaged inputs; a step is
-then one graph launch. The legacy loop's ``prefill_chunk_paged`` stays
-eager: it takes ``cache_len`` and ``valid`` as Python ints, which a graph
-would freeze and the reference traces as dynamic values.
+device, each megastep bucket width, the legacy loop's decode and its
+chunked prefill (one graph per chunk width, its ``cache_len`` and
+``valid`` staged as (1,) int32 device inputs, as the reference traces
+them as dynamic values) is one CUDA graph (``serving.graphs``), captured
+by ``compile_buckets`` or at its first call and replayed over static,
+fully restaged inputs; a dispatch is then one graph launch.
 
 ``mesh=`` (a ``launch.mesh.make_tp_mesh`` mesh, DESIGN.md §13) makes the
 megastep tensor-parallel: the params are head-permuted and sliced per
@@ -363,6 +363,13 @@ class PagedInferenceEngine:
         return self.model.decode_step_paged(self.params,
                                             self.cache.pools()[0], toks,
                                             lens, tables)
+
+    def _chunk(self, toks, cache_len, valid, table):
+        """The legacy loop's chunked prefill of one sequence: (1, C, vocab)
+        f32 logits; ``cache_len`` / ``valid`` (1,) int32 on the device."""
+        return self.model.prefill_chunk_paged(self.params,
+                                              self.cache.pools()[0], toks,
+                                              cache_len, valid, table)
 
     def _dispatch(self, key, fn, arrays: Dict[str, np.ndarray]):
         """``fn`` over ``arrays``: on the eager route as fresh device
@@ -1101,7 +1108,6 @@ class PagedInferenceEngine:
         dispatches_before = self.jit_dispatches
         tokens_before = self.tokens_real
         rec = self.obs.recorder
-        dev = self.device
 
         # ---- chunked prefill: one block of prompt per sequence per step
         for req in prefilling:
@@ -1109,14 +1115,15 @@ class PagedInferenceEngine:
             n = req.num_tokens
             if not self._grown(req, n + T):
                 continue
-            buf = np.zeros((1, self.prefill_chunk), np.int32)
-            buf[0, :T] = req.pending[:T]
-            row = np.asarray(req.table.padded(self.max_pages), np.int32)
+            C = self.prefill_chunk
+            ins = {"toks": np.zeros((1, C), np.int32),
+                   "cache_len": np.array([n], np.int32),
+                   "valid": np.array([T], np.int32),
+                   "table": np.asarray(req.table.padded(self.max_pages),
+                                       np.int32)}
+            ins["toks"][0, :T] = req.pending[:T]
             tc0 = time.perf_counter() if rec.enabled else 0.0
-            logits = self.model.prefill_chunk_paged(
-                self.params, self.cache.pools()[0],
-                torch.from_numpy(buf).to(dev), n, T,
-                torch.from_numpy(row).to(dev))
+            logits = self._dispatch(("chunk", C), self._chunk, ins)
             self.jit_dispatches += 1
             self.tokens_real += T
             self.tokens_dispatched += self.prefill_chunk

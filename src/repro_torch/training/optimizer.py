@@ -69,16 +69,17 @@ def compress(grads, err):
 def update(grads, state: AdamWState, params, cfg: AdamWConfig
            ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step: clip the gradients to ``clip_norm`` by their global
-    norm, then update the moments and the params in place. Returns
-    (params, the new state, {"grad_norm"}); the tensors of the old state
-    are the new state's."""
+    norm, then update the step counter, the moments and the params in
+    place. Returns (params, the new state, {"grad_norm"}); the tensors of
+    the old state are the new state's, so a CUDA graph captured over one
+    state keeps counting steps on every replay."""
     err = state.err
     if cfg.compress_grads:
         grads, err = compress(grads, err)
     gnorm = _global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
-    step = state.step + 1
+    step = state.step.add_(1)
     b1c = 1.0 - torch.pow(cfg.b1, step.float())
     b2c = 1.0 - torch.pow(cfg.b2, step.float())
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.m),

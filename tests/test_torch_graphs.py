@@ -18,6 +18,13 @@
   * the launch accounting: what a capture adds to the kernel wrappers'
     counts is put back, each replay adds it, a failed capture raises.
 
+  * the legacy loop's chunked prefill with ``cache_len`` / ``valid``
+    staged as (1,) int32 tensors equals the call with ints bit for bit
+    and the reference's within 1e-4; the engine captures it once per chunk
+    width, and ``set_pools`` drops that graph too;
+  * the dense engine's prefill, one captured step per prompt length
+    replayed at other slots, equals the eager one and the reference's.
+
 The replays on the card (bit for bit against the eager step, at tp 1 and
 2, the recapture after ``set_pools``, the launches per replay) are the
 ``gpu`` cases of ``test_torch_kernels_gpu.py``.
@@ -30,12 +37,14 @@ import torch
 
 from repro.configs import get_smoke_config as jax_smoke
 from repro.models import build
+from repro.models import transformer as jtr
 from repro.serving import InferenceEngine as JaxDense
 from repro.serving import PagedInferenceEngine as JaxEngine
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.paged_attention import ops as pa
 from repro_torch.launch.mesh import TPMesh
+from repro_torch.models import transformer as ttr
 from repro_torch.serving import InferenceEngine, PagedInferenceEngine, graphs
 from repro_torch.weights import params_from_jax
 
@@ -142,9 +151,12 @@ def test_staged_route_equals_fresh_tensors_and_reference(gemma, loop,
             len(staged.bucket_set) if compiled else 0)
         assert st["first_calls"] == len(staged.compiled_buckets)
     else:
-        # the decode alone is captured; the chunks stay eager
-        assert st["graphs"] == st["first_calls"] == 1
-        assert st["replays"] == staged.decode_steps - 1
+        # the decode and the chunk (one chunk width) are captured, each
+        # at its first call
+        chunks = staged.jit_dispatches - staged.decode_steps
+        assert set(staged.graphs.steps) == {"decode", ("chunk", 8)}
+        assert st["graphs"] == st["first_calls"] == 2
+        assert st["replays"] == staged.decode_steps - 1 + chunks - 1
 
 
 def test_dense_decode_staged_equals_eager_and_reference(gemma):
@@ -161,9 +173,140 @@ def test_dense_decode_staged_equals_eager_and_reference(gemma):
     assert traffic(eager) == traffic(staged) == want
     for name in eager.state:
         assert torch.equal(eager.state[name], staged.state[name])
+    # the decode, and one prefill per prompt length, each captured at its
+    # first call
+    lengths = {len(p) for p in PROMPTS + [LATE]}
+    prefills = staged.jit_dispatches - staged.steps_dispatched
     st = staged.graph_stats()
-    assert st["first_calls"] == 1
-    assert st["replays"] == staged.steps_dispatched - 1
+    assert set(staged.graphs.steps) == {"decode"} | {
+        ("prefill", n) for n in lengths}
+    assert st["first_calls"] == st["graphs"] == 1 + len(lengths)
+    assert st["replays"] == staged.steps_dispatched - 1 + prefills - len(
+        lengths)
+
+
+# (cache_len, valid) of consecutive chunks of width 8 over one table
+CHUNKS = [(0, 8), (8, 8), (16, 3), (5, 1), (40, 8)]
+
+
+def test_chunk_with_device_lengths_equals_ints_and_reference(gemma):
+    """``prefill_chunk_paged`` staged as the engine captures it (the
+    lengths (1,) int32 views of one buffer, replayed for every chunk)
+    against the call with ints on a copy of the pools, bit for bit, and
+    the reference's logits and pools."""
+    jcfg, params, tcfg, tp = gemma
+    rng = np.random.default_rng(7)
+    shape = (tcfg.n_layers, 9, 8, tcfg.n_kv_heads, tcfg.resolved_head_dim)
+    k, v = (rng.standard_normal(shape).astype(np.float32) for _ in "kv")
+    table = rng.permutation(np.arange(1, 9)).astype(np.int32)
+    staged = {"k": torch.from_numpy(k.copy()), "v": torch.from_numpy(v.copy())}
+    plain = {"k": torch.from_numpy(k.copy()), "v": torch.from_numpy(v.copy())}
+    jpools = {"k": jnp.asarray(k), "v": jnp.asarray(v)}
+    g = graphs.StepGraphs("cpu", capture=graphs.capture_eager)
+
+    def chunk(toks, cache_len, valid, table):
+        assert cache_len.shape == valid.shape == (1,)
+        return ttr.prefill_chunk_paged(tp, staged, toks, cache_len, valid,
+                                       table, tcfg)
+
+    for n, t in CHUNKS:
+        toks = np.zeros((1, 8), np.int32)
+        toks[0, :t] = rng.integers(1, tcfg.vocab_size, t)
+        got = g.run(("chunk", 8), chunk, {
+            "toks": toks, "cache_len": np.array([n], np.int32),
+            "valid": np.array([t], np.int32), "table": table}).clone()
+        want = ttr.prefill_chunk_paged(tp, plain, torch.from_numpy(toks), n,
+                                       t, torch.from_numpy(table), tcfg)
+        ref, jpools = jtr.prefill_chunk_paged(
+            params, jpools, jnp.asarray(toks), n, t, jnp.asarray(table),
+            jcfg)
+        assert torch.equal(got, want)
+        np.testing.assert_allclose(got[0, :t].numpy(),
+                                   np.asarray(ref)[0, :t], atol=1e-4,
+                                   rtol=1e-4)
+    for name in ("k", "v"):
+        assert torch.equal(staged[name], plain[name])
+        np.testing.assert_allclose(staged[name].numpy(),
+                                   np.asarray(jpools[name]), atol=1e-5,
+                                   rtol=1e-5)
+    assert g.stats()["first_calls"] == 1
+    assert g.stats()["replays"] == len(CHUNKS) - 1
+
+
+@pytest.mark.parametrize("prefill_chunk", [8, 16])
+def test_legacy_captures_one_chunk_graph_per_width(gemma, prefill_chunk):
+    """Prompts of several chunks: one captured chunk step (at the engine's
+    chunk width) and one decode, every later chunk a replay."""
+    eng = _port(gemma, "legacy", "staged", prefill_chunk=prefill_chunk)
+    for p in PROMPTS:
+        eng.submit(p, max_new_tokens=3)
+    eng.run_to_completion()
+    chunks = eng.jit_dispatches - eng.decode_steps
+    assert chunks > len(PROMPTS)
+    st = eng.graph_stats()
+    assert set(eng.graphs.steps) == {"decode", ("chunk", prefill_chunk)}
+    assert st["first_calls"] == 2
+    assert st["replays"] == chunks - 1 + eng.decode_steps - 1
+
+
+def test_set_pools_drops_the_chunk_graph(gemma):
+    """A chunk captured over the old pools is not replayed after
+    ``set_pools``: the next chunk captures anew over the new ones."""
+    eng = _port(gemma, "legacy", "staged")
+    eng.submit(PROMPTS[0], max_new_tokens=2)
+    eng.step()
+    old = eng.graphs.steps[("chunk", 8)]
+    eng.run_to_completion()
+    eng.cache.set_pools([{n: t.clone() for n, t in s.items()}
+                         for s in eng.cache.pools()])
+    eng.submit(PROMPTS[1], max_new_tokens=2)
+    eng.step()
+    new = eng.graphs.steps[("chunk", 8)]
+    assert new is not old
+    assert eng.graph_stats()["first_calls"] == 3      # chunk, decode, chunk
+
+
+DENSE_PROMPTS = [np.arange(12) % 97 + 1, (np.arange(9) * 3) % 200 + 1,
+                 (np.arange(12) * 7) % 256, np.arange(9) + 40,
+                 (np.arange(12) * 5) % 211, (np.arange(20) * 3) % 256]
+
+
+def test_dense_prefill_per_length_equals_eager_and_reference(gemma):
+    """Prompts of three lengths through two slots: one captured prefill per
+    length, replayed at whichever slot is free; tokens equal the eager
+    engine's and the reference's, the caches bit for bit."""
+    def traffic(eng):
+        rids = [eng.submit(p, max_new_tokens=n)
+                for p, n in zip(DENSE_PROMPTS, (6, 3, 4, 4, 3, 4))]
+        done = {r.rid: list(r.out_tokens) for r in eng.run_to_completion()}
+        return [done[r] for r in rids]
+
+    want = traffic(JaxDense(gemma[0], gemma[1], max_slots=2, max_len=64))
+    kw = dict(max_slots=2, max_len=64, device="cpu")
+    eager = InferenceEngine(gemma[2], gemma[3], **kw)
+    staged = InferenceEngine(gemma[2], gemma[3], **kw)
+    staged.graphs = graphs.StepGraphs("cpu", capture=graphs.capture_eager)
+    slots = []
+    run = staged.graphs.run
+
+    def spy(key, fn, arrays=None):
+        if key != "decode":
+            slots.append((key[1], int(arrays["slot"][0])))
+        return run(key, fn, arrays)
+
+    staged.graphs.run = spy
+    assert traffic(eager) == traffic(staged) == want
+    for name in eager.state:
+        assert torch.equal(eager.state[name], staged.state[name])
+    lengths = {len(p) for p in DENSE_PROMPTS}
+    # a length replayed at both slots
+    assert {s for n, s in slots if n == 12} == {0, 1}
+    st = staged.graph_stats()
+    assert set(staged.graphs.steps) == {"decode"} | {
+        ("prefill", n) for n in lengths}
+    assert st["first_calls"] == 1 + len(lengths)
+    assert st["replays"] == (staged.steps_dispatched - 1
+                             + len(DENSE_PROMPTS) - len(lengths))
 
 
 DRIVER = dict(remat=False, n_layers=2, d_model=64, n_heads=8, n_kv_heads=4,

@@ -3,7 +3,8 @@ K1 (paged chunked prefill), K2 (paged decode), K3 (flash attention), K4
 (decode over a contiguous cache) and K5 (the Mamba-2 SSD chunked scan);
 K3's and K5's gradients (their autograd Functions) against autograd of
 the plain versions, and the smoke models' gradients on the card against
-the CPU's.
+the CPU's; the captured steps (the serving dispatches and the train step)
+against the eager ones.
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device
 (the kernels have no CPU mode). This file imports no jax, so it runs on a
@@ -833,4 +834,108 @@ def test_graph_decode_launches_per_replay(cuda, engine, dtype):
     st = eng.graph_stats()
     decodes = eng.decode_steps if engine == "legacy" \
         else eng.steps_dispatched
-    assert st["first_calls"] == 1 and st["replays"] == decodes - 1
+    # the decode, and the chunks (one width) or prefills (one graph per
+    # prompt length), each captured at its first call
+    prefills = eng.jit_dispatches - decodes
+    keys = set(eng.graphs.steps)
+    assert "decode" in keys and st["first_calls"] == len(keys)
+    assert st["replays"] == decodes + prefills - len(keys)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("engine", ["legacy", "dense"])
+def test_graph_prefills_replay_equal_eager(cuda, engine, dtype):
+    """The legacy loop's chunked prefill (K1, one graph per chunk width,
+    its lengths staged on the device) and the dense engine's prefill (K3,
+    one graph per prompt length, copied in at the staged slot), replayed
+    for prompts of repeated lengths: the eager engine's tokens (at f32 its
+    pools or cache bit for bit) and launches."""
+    from repro_torch.serving import InferenceEngine, PagedInferenceEngine
+    cfg, params = _graph_model(cuda, dtype)
+    prompts = [np.arange(1 + i, 1 + i + (40 if i % 2 else 23)) % 256
+               for i in range(6)]
+    wrapper = ops.paged_prefill_attention if engine == "legacy" \
+        else fa.flash_attention
+    runs = {}
+    for graphs_on in (False, True):
+        if engine == "legacy":
+            eng = PagedInferenceEngine(cfg, params, device=cuda,
+                                       megastep=False, cuda_graphs=graphs_on,
+                                       **GRAPH_KW)
+        else:
+            eng = InferenceEngine(cfg, params, max_slots=2, max_len=96,
+                                  device=cuda, cuda_graphs=graphs_on)
+        before = wrapper.launches
+        rids = [eng.submit(p, max_new_tokens=3 + i % 3)
+                for i, p in enumerate(prompts)]
+        done = {r.rid: list(r.out_tokens) for r in eng.run_to_completion()}
+        eng.sync()
+        decodes = eng.decode_steps if engine == "legacy" \
+            else eng.steps_dispatched
+        prefills = eng.jit_dispatches - decodes
+        assert wrapper.launches - before == cfg.n_layers * prefills
+        state = ([t for s in eng.cache.pools() for t in s.values()]
+                 if engine == "legacy" else list(eng.state.values()))
+        runs[graphs_on] = [done[r] for r in rids], state, eng, prefills
+    assert runs[True][0] == runs[False][0]
+    assert runs[True][3] == runs[False][3]
+    if dtype == "float32":
+        for a, b in zip(runs[True][1], runs[False][1]):
+            assert torch.equal(a, b)
+    eng, prefills = runs[True][2], runs[True][3]
+    keys = set(eng.graphs.steps) - {"decode"}
+    assert keys == ({("chunk", GRAPH_KW["prefill_chunk"])}
+                    if engine == "legacy" else {("prefill", 23),
+                                                ("prefill", 40)})
+    assert prefills > len(keys)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-370m"])
+def test_captured_train_step_equals_eager_on_the_card(cuda, arch,
+                                                      monkeypatch):
+    """The smoke model's train step (bf16 compute, K3 or K5 through its
+    Function, remat, clip, AdamW), deterministic: three steps replayed
+    from one CUDA graph against three eager steps from the same params,
+    metrics and params and optimizer state bit for bit, the kernel's
+    launches equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.tree import leaves
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = get_smoke_config(arch)
+    model = build(cfg)
+    ocfg = opt.AdamWConfig()
+    data = SyntheticLM(cfg, 2, 16, seed=1, device=cuda)
+    wrapper = ssd_ops.ssd if cfg.family == "ssm" else fa.flash_attention
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    runs = {}
+    try:
+        for graphs_on in (False, True):
+            params = model.init_train_params(seed=0, device=cuda)
+            state = opt.init(params, ocfg)
+            step = make_train_step(cfg, ocfg, cuda_graphs=graphs_on)
+            before = wrapper.launches
+            metrics = []
+            for i in range(3):
+                params, state, m = step(params, state, data.batch_at(i))
+                metrics.append({k: v.clone() for k, v in m.items()})
+            torch.cuda.synchronize()
+            runs[graphs_on] = (params, state, metrics,
+                               wrapper.launches - before, step)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    (pe, se, me, ne, _), (pg, sg, mg, ng, step) = runs[False], runs[True]
+    assert ng == ne == (2 if cfg.remat else 1) * cfg.n_layers * 3
+    for a, b in zip(mg, me):
+        for k in b:
+            assert torch.equal(a[k], b[k]), k
+    for x, y in zip(leaves((pg, sg)), leaves((pe, se))):
+        assert torch.equal(x, y)
+    st = step.graph_stats()
+    assert st["first_calls"] == 1 and st["replays"] == 2

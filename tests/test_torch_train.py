@@ -13,6 +13,12 @@
     with and without ``compress_grads``;
   * ``make_train_step``'s losses and ``make_serve_steps``' logits against
     the reference's;
+  * the captured step's route (``TrainStep``'s static batch and replays;
+    on the CPU ``graphs.capture_eager`` replays by running the step
+    again): three steps equal the eager ones bit for bit (params, moments,
+    step, residual, metrics) and the reference's within the losses'
+    tolerance, with and without compression and with a VLM's float
+    batch; a restored tree drops the graph and captures anew;
   * the data stream equal to the reference's.
 
 On the CPU the kernels' wrappers run the plain versions, which autograd
@@ -38,6 +44,7 @@ from repro.training import optimizer as ref_opt
 from repro.training.data import SyntheticLM as RefSyntheticLM
 from repro.training.train_step import make_serve_steps as ref_serve_steps
 from repro.training.train_step import make_train_step as ref_make_train_step
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -46,11 +53,12 @@ from repro_torch.kernels.flash_attention.backward import \
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.backward import ssd_backward
 from repro_torch.models import build
+from repro_torch.serving import graphs
 from repro_torch.training import optimizer as opt
 from repro_torch.training.data import SyntheticLM
 from repro_torch.training.train_step import (make_serve_steps,
                                              make_train_step, value_and_grad)
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, tree_map
 from repro_torch.weights import params_from_jax, train_params_from_jax
 
 LOSS_TOL = 1e-5      # f32, summation order
@@ -335,6 +343,113 @@ def test_train_step_losses_equal_reference():
         p_params, p_state, pm = p_step(p_params, p_state, data.batch_at(i))
         assert abs(float(rm["loss"]) - float(pm["loss"])) <= 1e-4, i
         assert set(pm) == set(rm)
+
+
+# ------------------------------------------------- the captured train step
+
+def _staged(step):
+    """``step`` on the graph route, the CPU's stand-in capture."""
+    step.graphs = graphs.StepGraphs("cpu", capture=graphs.capture_eager)
+    return step
+
+
+def _assert_trees_equal(a, b):
+    la, lb = leaves(a), leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.parametrize("arch,compress", [
+    ("gemma-2b", False), ("gemma-2b", True),
+    ("llava-next-mistral-7b", False)])
+def test_captured_train_step_equals_eager_and_reference(arch, compress):
+    """Three steps on the staged route (the first the warm-up, two
+    replays) against three eager steps from the same params, bit for bit,
+    and the reference's jitted step. With the step counter out of place
+    a replay would keep reading the captured count: bias correction
+    frozen at step 1, the params and moments off the eager ones."""
+    rcfg, cfg = _cfgs(arch, remat=False)
+    ocfg = dict(lr=1e-3, compress_grads=compress)
+    params = _ref_params(rcfg)
+    r_step = jax.jit(ref_make_train_step(rcfg, ref_opt.AdamWConfig(**ocfg)))
+    r_state = ref_opt.init(params, ref_opt.AdamWConfig(**ocfg))
+    eager = make_train_step(cfg, opt.AdamWConfig(**ocfg))
+    staged = _staged(make_train_step(cfg, opt.AdamWConfig(**ocfg)))
+    pe, pg = _to_port(params), _to_port(params)
+    se, sg = (opt.init(p, opt.AdamWConfig(**ocfg)) for p in (pe, pg))
+    ref_data = RefSyntheticLM(rcfg, batch=2, seq=16, seed=0)
+    data = SyntheticLM(cfg, batch=2, seq=16, seed=0, device="cpu")
+    for i in range(3):
+        batch = data.batch_at(i)
+        params, r_state, rm = r_step(params, r_state, ref_data.batch_at(i))
+        pe, se, me = eager(pe, se, batch)
+        out_p, out_s, mg = staged(pg, sg, batch)
+        assert out_p is pg and out_s is sg
+        assert set(mg) == set(me) == set(rm)
+        for k in me:
+            assert torch.equal(mg[k], me[k]), (i, k)
+        assert abs(float(rm["loss"]) - float(mg["loss"])) <= 1e-4, i
+        assert abs(float(rm["grad_norm"]) - float(mg["grad_norm"])) <= \
+            1e-4 * float(rm["grad_norm"]), i
+    assert int(sg.step) == int(r_state.step) == 3
+    assert (sg.err is None) == (not compress)
+    _assert_trees_equal((pg, sg), (pe, se))
+    st = staged.graph_stats()
+    assert st["cuda_graphs"] and st["graphs"] == st["first_calls"] == 1
+    assert st["replays"] == 2
+    if arch.startswith("llava"):
+        static = next(iter(staged.graphs.steps.values())).inputs.views
+        assert static["patch_embeds"].dtype == torch.float32
+        assert static["tokens"].dtype == torch.int32
+
+
+def test_captured_train_step_recaptures_on_a_restored_tree(tmp_path):
+    """Two staged steps, a checkpoint, then the restored tree (new
+    tensors, as ``--resume`` passes): the graph over the old tree is
+    dropped, the next call captures anew, and the steps on the restored
+    tree equal the eager steps that ran on."""
+    _, cfg = _cfgs("gemma-2b", remat=False)
+    ocfg = opt.AdamWConfig(lr=1e-3)
+    p = build(cfg).init_train_params(seed=0, device="cpu")
+    s = opt.init(p, ocfg)
+    pe, se = tree_map(lambda t: t.clone(), (p, s))
+    data = SyntheticLM(cfg, batch=2, seq=16, seed=0, device="cpu")
+    staged = _staged(make_train_step(cfg, ocfg))
+    eager = make_train_step(cfg, ocfg)
+    for i in range(2):
+        staged(p, s, data.batch_at(i))
+        eager(pe, se, data.batch_at(i))
+    ck = Checkpointer(str(tmp_path))
+    ck.save(2, (p, s))
+    (p2, s2), start, _ = ck.restore((p, s))
+    assert start == 2 and leaves(p2)[0] is not leaves(p)[0]
+    old = tree_map(lambda t: t.clone(), (p, s))
+    for i in range(2, 4):
+        _, _, mg = staged(p2, s2, data.batch_at(i))
+        _, _, me = eager(pe, se, data.batch_at(i))
+        for k in me:
+            assert torch.equal(mg[k], me[k]), (i, k)
+    _assert_trees_equal((p2, s2), (pe, se))
+    _assert_trees_equal((p, s), old)          # the old tree is left alone
+    st = staged.graph_stats()
+    assert st["graphs"] == 1 and st["first_calls"] == 2
+    assert st["replays"] == 2
+
+
+def test_cuda_graphs_resolve_for_the_train_step():
+    """The train step's route: eager off the card (``None``), refused
+    there when asked for (``True``)."""
+    _, cfg = _cfgs("gemma-2b", remat=False)
+    p = build(cfg).init_train_params(seed=0, device="cpu")
+    s = opt.init(p, opt.AdamWConfig())
+    batch = SyntheticLM(cfg, batch=2, seq=16, seed=0,
+                        device="cpu").batch_at(0)
+    step = make_train_step(cfg)
+    step(p, s, batch)
+    assert step.graph_stats() == {"cuda_graphs": False}
+    with pytest.raises(ValueError, match="cuda_graphs=True needs"):
+        make_train_step(cfg, cuda_graphs=True)(p, s, batch)
 
 
 def test_serve_steps_equal_reference():
