@@ -69,6 +69,15 @@ Phases, each printing one JSON line (several for the kernel cases):
               plain versions within 2e-2 (bf16) or 1e-4 (f32) of the
               plain gradient's largest magnitude, K3's lse against the
               plain one; each backward's device ms beside its forward's.
+              The fp8 KV cache (``kv_cache_dtype="float8_e4m3fn"``): K1
+              (tensor cores at C 32 and 256 and the legacy chunk, split at
+              C 1, the f32 walk at C 8), K2 (bf16, f32) and K4 (per-row
+              bf16 and f32, one scalar length) on e4m3 pools and caches at
+              gemma-2b's heads, each against its plain version, bit for
+              bit against the same kernel on the pools upcast to q's
+              dtype, and timed beside that call in turns (upcast, fp8,
+              fp8, upcast) with SDPA on the upcast K/V (SDPA takes no fp8
+              K/V); the bound counts K/V at 1 byte an element.
 4. main     — full-width gemma-2b (depth 18, random weights from --seed) in
               bf16 served through AgentRM -> PagedEngineBackend ->
               PagedInferenceEngine -> mixed_step_paged (K1): several agents,
@@ -101,7 +110,16 @@ Phases, each printing one JSON line (several for the kernel cases):
               schedule, and profiles a decode step with all 4 slots busy
               and a prefill of 96 tokens, replayed and eager, with the
               capture seconds and graph count.
-7. serve    — the serving CLI, ``repro_torch.launch.serve.main(argv)`` in
+7. kv_fp8   — the fp8 KV cache at full gemma-2b (bf16 compute, e4m3
+              pools and cache, the same params and agents): AgentRM over
+              the megastep (K1), the legacy loop (K1, K2) and the dense
+              engine (K3 on the prefill's fresh K/V, K4 on the cache), each
+              captured as above. Checks every turn completes with no -1,
+              the launch counts, pools and cache at half bf16's bytes;
+              reports each run's token agreement with its bf16 run and
+              both rates (not gated: e4m3 rounds the cached K/V). Then
+              ``device.cast_to`` on the card against the CPU, bit for bit.
+8. serve    — the serving CLI, ``repro_torch.launch.serve.main(argv)`` in
               this process at full gemma-2b (bf16, the CLI's defaults:
               pages of 8, 129 blocks, 4 rows, max_len 192), six runs:
               (a) --paged --token-budget 64 with a journal, a disk tier,
@@ -123,43 +141,43 @@ Phases, each printing one JSON line (several for the kernel cases):
               fluid migration mid-decode, a disk-tier hibernate/wake, a
               poisoned row, and the captured megastep against the eager
               one, tokens and pools bit for bit.
-8. lockstep — full-width gemma-2b in float32, b=2, s=64: ``forward`` logits
+9. lockstep — full-width gemma-2b in float32, b=2, s=64: ``forward`` logits
               (K3) against ``decode_step`` fed token by token at a scalar
               cache_len (K4), within 2e-3, and ``prefill`` + ``decode_step``
               against ``forward`` on the next token.
-9. ssm      — full-width, full-depth mamba2-370m (48 layers) in bf16:
+10. ssm     — full-width, full-depth mamba2-370m (48 layers) in bf16:
               ``prefill`` of 4 prompts of 512 tokens (K5 in every layer),
               32 greedy ``decode_step``s, a replay with the same tokens,
               a profiled prefill and decode step; then f32, b=2: ``forward`` over 512 tokens against
               ``decode_step`` token by token at every position, and
               ``prefill`` of 255 + one ``decode_step`` against ``forward``
               over 256, within 2e-3, the next token equal.
-10. hybrid  — full-width zamba2-7b in bf16 at full depth (81 layers):
+11. hybrid  — full-width zamba2-7b in bf16 at full depth (81 layers):
               ``forward`` over b=1, s=512 (K3 per group, K5 per Mamba-2
               layer), 32 ``decode_step``s from position 0 (K4 per group),
               a profiled forward and decode step; then f32 at a depth cut
               to 13 layers: ``forward`` over 64
               tokens against ``decode_step`` token by token, within 2e-3.
-11. moe     — llama4-scout-17b-a16e (MoE: 16 experts of 8192 top-1 and a
+12. moe     — llama4-scout-17b-a16e (MoE: 16 experts of 8192 top-1 and a
               shared one) at full width in bf16, depth cut to 8 of 48
               layers (memory): ``main`` as it runs gemma-2b, the same
               agents and prompts through AgentRM -> the megastep (K1),
               every column of each step routed; then f32 at depth 2,
               capacity factor 8, one row: ``forward`` against
               ``decode_step`` token by token, within 2e-3.
-12. mla     — deepseek-v2-lite-16b (MLA, 64 experts top-6, a dense first
+13. mla     — deepseek-v2-lite-16b (MLA, 64 experts top-6, a dense first
               layer) at full width and depth in bf16: ``forward`` over
               2 x 512 (K3 at d 192, dv 128), ``prefill`` + 32 greedy
               ``decode_step``s (the absorbed decode: plain products) and
               a replay, a profiled forward and decode step; then f32 at
               depth 4, capacity factor 8: forward against decode.
-13. vlm     — llava-next-mistral-7b at full width and depth in bf16:
+14. vlm     — llava-next-mistral-7b at full width and depth in bf16:
               ``forward`` with 576 patch embeddings ahead of 64 tokens
               (K3), ``prefill`` with the prefix + 16 ``decode_step``s
               (K4); then the serving CLI ``--paged``, text only (K1).
-14. starcoder2 — starcoder2-7b at full width and depth (hq 36 over 4 kv
+15. starcoder2 — starcoder2-7b at full width and depth (hq 36 over 4 kv
               heads) through the serving CLI ``--paged`` at its defaults.
-15. tp      — the tensor-parallel megastep (``mesh=make_tp_mesh(tp,
+16. tp      — the tensor-parallel megastep (``mesh=make_tp_mesh(tp,
               devices=["cuda:0"] * tp)``, every shard on the card) at
               starcoder2-7b's full width and depth in bf16: ``main``'s
               AgentRM run without a mesh and at tp 1 (tokens and each
@@ -177,12 +195,12 @@ Phases, each printing one JSON line (several for the kernel cases):
               at tp 4 with them; at full depth each tp's live pages after
               the first turns lie within 1e-4 of the largest |value| of
               the mesh-less engine's.
-16. encdec  — whisper-tiny at full size in bf16: ``forward`` (K3 not
+17. encdec  — whisper-tiny at full size in bf16: ``forward`` (K3 not
               causal over 1500 encoder positions and across, causal over
               the text), ``init_cross_cache`` + 32 greedy ``decode_step``s
               (K4 self, K3 across at sq 1), a profiled decode step; then
               f32 forward against decode, within 2e-3.
-17. train   — ``repro_torch.launch.train.main(argv)`` in this process,
+18. train   — ``repro_torch.launch.train.main(argv)`` in this process,
               its step one CUDA graph (the first step its warm-up, one
               replay a step after it): gemma-2b at full width and depth
               (bf16 compute, f32 master params and AdamW moments, remat
@@ -200,7 +218,7 @@ Phases, each printing one JSON line (several for the kernel cases):
               launched 2 x 48 a step. Then at depth 2, one gradient each:
               wq/wk/wv and the Mamba block's in_proj get a finite non-zero
               gradient in every layer.
-18. dryrun  — ``repro_torch.launch.dryrun`` against the card: (a) every
+19. dryrun  — ``repro_torch.launch.dryrun`` against the card: (a) every
               ``iter_cells`` cell on the 16x16 and 2x16x16 production
               meshes on meta (64 ok, 16 skipped with the reference's
               reason; cells under build/dryrun/cells/); in a fresh
@@ -224,13 +242,15 @@ Phases, each printing one JSON line (several for the kernel cases):
 Every kernel's launch count is set to 0 just before a path is driven and
 read just after; launches made to compare a kernel with its plain version
 are not counted. Each phase's line carries its own seconds. Then the
-``{"kernels": [...]}`` line, the card's nvidia-smi line, and as the last
-line ``{"ok": true, "device": {...}}``. Any failure raises and exits
-non-zero before that line is printed.
+``{"kernels": [...]}`` line (K1-K5, then K1, K2 and K4 on e4m3 pools,
+their launches the kv_fp8 phase's), the card's nvidia-smi line, and as
+the last line ``{"ok": true, "device": {...}}``. Any failure raises and
+exits non-zero before that line is printed.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import json
 import math
@@ -444,14 +464,15 @@ def _paged_case(torch, dtype, C, hkv, seed, *, b=8, hq=8, d=256, blk=16,
 
 
 def _prefill_bound(q, k, v, lens, vals, pt, dname) -> dict:
-    """K1: q read, the K/V pages holding a key some query sees, out
-    written, the row scalars and tables; 2*(d+dv) operations per visible
-    key and query head (``work.k1_flops``, the count the wrapper adds)."""
+    """K1: q read, the K/V pages holding a key some query sees (at the
+    pools' own element size: 1 byte for e4m3), out written, the row
+    scalars and tables; 2*(d+dv) operations per visible key and query head
+    (``work.k1_flops``, the count the wrapper adds)."""
     from repro_torch.kernels import work
     b, C, hq, d = q.shape
     blk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
-    es = q.element_size()
-    nbytes = (q.numel() + b * C * hq * dv) * es
+    es = k.element_size()
+    nbytes = (q.numel() + b * C * hq * dv) * q.element_size()
     nbytes += (lens.numel() + vals.numel() + pt.numel()) * 4
     cache, valids = lens.tolist(), vals.tolist()
     for off, val in zip(cache, valids):
@@ -461,6 +482,17 @@ def _prefill_bound(q, k, v, lens, vals, pt, dname) -> dict:
         nbytes += pages * blk * hkv * (d + dv) * es
     flops = work.k1_flops(cache, valids, C, hq, d, dv)
     return _bound(nbytes, flops, dname)
+
+
+def _decode_bytes(q, k, lens, dv, blk: int = 1) -> int:
+    """A decode's bytes (K2, K4): q read and out written at q's size, the
+    K/V rows below each row's length (whole pages of ``blk``) at the
+    cache's own size (1 byte for e4m3), the lengths."""
+    b, _, hq, d = q.shape
+    hkv = k.shape[-2]
+    rows = sum(-(-n // blk) * blk for n in lens)
+    return ((q.numel() + b * hq * dv) * q.element_size()
+            + rows * hkv * (d + dv) * k.element_size() + b * 4)
 
 
 def _repeat_check(torch, name: str, fn):
@@ -568,10 +600,8 @@ def k2_cases(torch, flush):
         kpos = torch.arange(kg.shape[1], device="cuda")
         mask = (kpos[None, :] < lens[:, None])[:, None, None]
         ks, vs = _tile_heads(kg, g), _tile_heads(vg, g)
-        es = q.element_size()
-        nbytes = (q.numel() + b * hq * dv) * es + (b + pt.numel()) * 4
-        for L in lens.tolist():
-            nbytes += -(-L // blk) * blk * hkv * (d + dv) * es
+        nbytes = _decode_bytes(q, k, lens.tolist(), dv, blk) \
+            + pt.numel() * 4
         flops = work.k2_flops(lens.tolist(), hq, d, dv)
         plan = ops.kernel_plan(q, k, v, pt)
         out = _repeat_check(torch, f"K2 hkv={hkv} {dname}",
@@ -691,9 +721,7 @@ def k4_cases(torch, flush):
         lt = torch.tensor(lens, device="cuda")
         mask = (kpos[None, :] < lt[:, None])[:, None, None]
         ks, vs = _tile_heads(k, hq // hkv), _tile_heads(v, hq // hkv)
-        es = q.element_size()
-        nbytes = (q.numel() + b * hq * d) * es + b * 4
-        nbytes += sum(lens) * hkv * 2 * d * es
+        nbytes = _decode_bytes(q, k, lens, d)
         flops = work.k4_flops(lens, hq, d, d)
         split, n_split = ops.kernel_plan(q, k, v)
         row = measure(
@@ -716,6 +744,139 @@ def k4_cases(torch, flush):
             q[:, 0].float(), k.float(), v.float(), kv_len, split=split,
             pairing="g_major")
         rows.append(_walk_check(torch, "K4", row, once[:, 0], walk))
+    return rows
+
+
+def _ab_ms(torch, flush, fp8_fn, up_fn) -> dict:
+    """The e4m3 call against the same kernel on the upcast pools, timed in
+    turns (upcast, fp8, fp8, upcast) in this call: each turn's median
+    device ms."""
+    up = [time_ms(up_fn, 20, flush)[0]]
+    f8 = [time_ms(fp8_fn, 20, flush)[0], time_ms(fp8_fn, 20, flush)[0]]
+    up.append(time_ms(up_fn, 20, flush)[0])
+    return {"fp8_turns_ms": f8, "upcast_turns_ms": up,
+            "fp8_ms": statistics.mean(f8), "upcast_ms": statistics.mean(up)}
+
+
+def kv_fp8_cases(torch, flush):
+    """K1, K2 and K4 on e4m3 pools and caches (an fp8 KV cache,
+    ``kv_cache_dtype="float8_e4m3fn"``) at gemma-2b's heads: K1 on the
+    tensor cores at C 32 and 256 (b 8) and the legacy chunk (b 1, C 32),
+    split at C 1, the f32 walk at C 8; K2 at the legacy decode (b 8,
+    lengths 1-901), bf16 and f32; K4 at the dense engine's 4 slots
+    (per-row lengths, bf16 and f32) and one scalar length. Each against
+    its plain version (TOL), against the same kernel on the pools upcast
+    to q's dtype bit for bit, and timed beside that call in turns
+    (``_ab_ms``); the bound counts K/V at 1 byte an element. SDPA takes
+    no fp8 K/V, so the library column is empty; SDPA on the upcast K/V is
+    timed beside it."""
+    import torch.nn.functional as F
+    from repro_torch.device import cast_to
+    from repro_torch.kernels import work
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.paged_attention import ref as pref
+    f8 = torch.float8_e4m3fn
+    rows = []
+
+    def run(kernel, case, dname, fn, up_fn, plain, sdpa, bound):
+        name = f"{kernel} fp8 {case}"
+        out, up = _repeat_check(torch, name, fn), up_fn()
+        torch.cuda.synchronize()
+        if not torch.equal(out, up):
+            raise AssertionError(f"{name}: e4m3 pools != the upcast pools "
+                                 "bit for bit")
+        row = measure(torch, flush, kernel, {
+            **case, "kv_dtype": "float8_e4m3fn", "bitwise_upcast": True,
+            "bitwise_repeat": True}, dname, fn, plain, None, None, bound)
+        row.update(_ab_ms(torch, flush, fn, up_fn),
+                   sdpa_upcast_ms=time_ms(sdpa, 20, flush)[0],
+                   library_note="none: SDPA takes no fp8 K/V")
+        emit({"phase": "kernel_fp8", **{k: row[k] for k in (
+            "kernel", "b", "C", "S", "dtype", "route", "fp8_turns_ms",
+            "upcast_turns_ms", "fp8_ms", "upcast_ms", "sdpa_upcast_ms",
+            "bound_ms") if k in row}})
+        rows.append(row)
+
+    k1 = [(torch.bfloat16, 32, 8, None), (torch.bfloat16, 256, 8, None),
+          (torch.bfloat16, 32, 1, ([300], [32])),
+          (torch.bfloat16, 1, 8, None), (torch.float32, 8, 8, None)]
+    for n, (dtype, C, b, fixed) in enumerate(k1):
+        q, k, v, lens, vals, pt = _paged_case(torch, dtype, C, 1,
+                                              seed=5000 + n, b=b, rows=fixed)
+        k8, v8 = cast_to(k, f8), cast_to(v, f8)
+        ku, vu = k8.to(dtype), v8.to(dtype)
+        kg, vg = pref.gather_pages(ku, pt), pref.gather_pages(vu, pt)
+        mask = pref._mixed_mask(C, kg.shape[1], lens, vals)[:, None]
+        qs, ks, vs = q.transpose(1, 2), _tile_heads(kg, 8), _tile_heads(vg, 8)
+        dname = _dname(dtype)
+        run("K1", {"b": b, "C": C, "hq": 8, "hkv": 1, "d": 256,
+                   **pa.kernel_plan(q, k8, v8, pt)}, dname,
+            lambda: pa.paged_prefill_attention(q, k8, v8, lens, vals, pt,
+                                               pairing="g_major"),
+            lambda: pa.paged_prefill_attention(q, ku, vu, lens, vals, pt,
+                                               pairing="g_major"),
+            lambda: pref.paged_prefill_attention_ref(
+                q, k8, v8, lens, vals, pt, pairing="g_major"),
+            lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                   attn_mask=mask),
+            _prefill_bound(q, k8, v8, lens, vals, pt, dname))
+    for n, dtype in enumerate((torch.bfloat16, torch.float32)):
+        q, k, v, _, _, pt = _paged_case(torch, dtype, 1, 1, seed=5100 + n)
+        k8, v8 = cast_to(k, f8), cast_to(v, f8)
+        ku, vu = k8.to(dtype), v8.to(dtype)
+        lens = torch.tensor([1, 37, 300, 517, 640, 777, 850, 901],
+                            dtype=torch.int32, device="cuda")
+        kg, vg = pref.gather_pages(ku, pt), pref.gather_pages(vu, pt)
+        kpos = torch.arange(kg.shape[1], device="cuda")
+        mask = (kpos[None, :] < lens[:, None])[:, None, None]
+        ks, vs = _tile_heads(kg, 8), _tile_heads(vg, 8)
+        dname = _dname(dtype)
+        run("K2", {"b": 8, "hkv": 1, "max_len": 901,
+                   **pa.kernel_plan(q, k8, v8, pt)}, dname,
+            lambda: pa.paged_attention(q, k8, v8, lens, pt,
+                                       pairing="g_major"),
+            lambda: pa.paged_attention(q, ku, vu, lens, pt,
+                                       pairing="g_major"),
+            lambda: pref.paged_attention_ref(q[:, 0], k8, v8, lens, pt,
+                                             pairing="g_major")[:, None],
+            lambda: F.scaled_dot_product_attention(q.transpose(1, 2), ks, vs,
+                                                   attn_mask=mask),
+            _bound(_decode_bytes(q, k8, lens.tolist(), 256, 16)
+                   + pt.numel() * 4,
+                   work.k2_flops(lens.tolist(), 8, 256, 256), dname))
+    for n, (dtype, scalar) in enumerate([(torch.bfloat16, False),
+                                         (torch.float32, False),
+                                         (torch.bfloat16, True)]):
+        g = torch.Generator(device="cuda").manual_seed(5200 + n)
+        b, S, hq, d = 4, 1024, 8, 256
+        q = torch.randn((b, 1, hq, d), generator=g, device="cuda").to(dtype)
+        k8, v8 = (cast_to(torch.randn((b, S, 1, d), generator=g,
+                                      device="cuda"), f8) for _ in "kv")
+        ku, vu = k8.to(dtype), v8.to(dtype)
+        lens = [700] * b if scalar else [1, 97, 513, 1000]
+        kv_len = 700 if scalar else torch.tensor(lens, dtype=torch.int32,
+                                                 device="cuda")
+        kpos = torch.arange(S, device="cuda")
+        mask = (kpos[None, :] < torch.tensor(lens, device="cuda")[:, None]
+                )[:, None, None]
+        ks, vs = _tile_heads(ku, hq), _tile_heads(vu, hq)
+        split, n_split = da.kernel_plan(q, k8, v8)
+        dname = _dname(dtype)
+        run("K4", {"b": b, "S": S, "hq": hq, "hkv": 1, "d": d,
+                   "scalar_len": scalar, "lens": lens, "split": split,
+                   "n_split": n_split}, dname,
+            lambda: da.decode_attention(q, k8, v8, kv_len,
+                                        pairing="g_major"),
+            lambda: da.decode_attention(q, ku, vu, kv_len,
+                                        pairing="g_major"),
+            lambda: dref.decode_attention_ref(q[:, 0], k8, v8, kv_len,
+                                              pairing="g_major")[:, None],
+            lambda: F.scaled_dot_product_attention(q.transpose(1, 2), ks, vs,
+                                                   attn_mask=mask),
+            _bound(_decode_bytes(q, k8, lens, d),
+                   work.k4_flops(lens, hq, d, d), dname))
     return rows
 
 
@@ -1395,7 +1556,8 @@ def _dense_prefill(eng, plen: int = 96):
 def legacy_phase(torch, cfg, params, prompts, mega_toks, seed: int):
     """The benchmark baseline: AgentRM's lane pool over
     SerializedPagedBackend, one turn in the engine at a time, the engine's
-    legacy loop underneath."""
+    legacy loop underneath. Returns the AgentRM run's tokens and the
+    phase's row."""
     import numpy as np
     from repro_torch.core import AgentRM, AgentRMConfig
     from repro_torch.serving import (PagedInferenceEngine,
@@ -1458,7 +1620,7 @@ def legacy_phase(torch, cfg, params, prompts, mega_toks, seed: int):
     chunk = _dispatch_readings(torch, engines, _legacy_chunk,
                                profile=False)
     n_out = sum(len(t) for t in toks.values())
-    return {
+    return toks, {
         "turns": len(toks), "failed_turns": 0, "tokens_out": n_out,
         "wall_s": wall, "tokens_per_s": n_out / wall,
         "ttft_p95_s": stats["ttft_p95_s"], "itl_p95_s": stats["itl_p95_s"],
@@ -1479,7 +1641,8 @@ def legacy_phase(torch, cfg, params, prompts, mega_toks, seed: int):
 
 def dense_phase(torch, cfg, params, prompts):
     """AgentRM's lane pool over EngineBackend and the dense slot engine:
-    one prefill per turn (K3), one decode step per token (K4)."""
+    one prefill per turn (K3), one decode step per token (K4). Returns the
+    AgentRM run's tokens and the phase's row."""
     import numpy as np
     from repro_torch.core import AgentRM, AgentRMConfig
     from repro_torch.serving import EngineBackend, InferenceEngine
@@ -1562,7 +1725,7 @@ def dense_phase(torch, cfg, params, prompts):
     # slot 0's rows of these engines, which serve nothing after)
     prefill = _dispatch_readings(torch, engines, _dense_prefill)
     n_out = sum(len(t) for t in toks.values())
-    return {
+    return toks, {
         "turns": len(toks), "failed_turns": 0, "tokens_out": n_out,
         "wall_s": wall, "tokens_per_s": n_out / wall,
         "prompt_tokens": [len(p) for p in submitted],
@@ -1575,6 +1738,133 @@ def dense_phase(torch, cfg, params, prompts):
         "prompt_lengths": len(lengths),
         **timed["graphs"], "eager": timed["eager"], "prefill": prefill,
     }
+
+
+# ------------------------------------------------------------- kv_fp8
+
+def _serve_fp8(torch, path: str, engine, backend, prompts, want,
+               n_new) -> tuple:
+    """One AgentRM run over ``backend`` (its engine on an e4m3 cache):
+    every turn complete, the launches as ``want(engine)`` says from the
+    run's calls. Returns the tokens and the run's row."""
+    from repro_torch.core import AgentRM, AgentRMConfig
+    rm = AgentRM(backend, AgentRMConfig(detect_after_s=120.0))
+    engine.jit_dispatches = 0
+    engine.steps_dispatched = 0
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = _drive(rm, prompts)
+    engine.sync()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    _check_turns(path, toks, n_new)
+    _expect(path, counts, want(engine))
+    n_out = sum(len(t) for t in toks.values())
+    row = {"turns": len(toks), "failed_turns": 0, "tokens_out": n_out,
+           "wall_s": wall, "tokens_per_s": n_out / wall,
+           "launches": counts, "graph": engine.graph_stats()}
+    if hasattr(engine, "step_stats"):
+        st = engine.step_stats()
+        row.update({k: st[k] for k in ("ttft_p95_s", "itl_p95_s",
+                                       "step_p95_s", "steps_dispatched",
+                                       "jit_dispatches_per_step")})
+    return toks, row
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def kv_fp8_phase(torch, cfg, params, prompts, bf16: dict) -> dict:
+    """An fp8 KV cache (``kv_cache_dtype="float8_e4m3fn"``) at full
+    gemma-2b, bf16 compute, the same params and agents: AgentRM over the
+    megastep (K1 on e4m3 pools), over the legacy loop (K1 and K2) and over
+    the dense engine (K3 on the prefill's fresh bf16 K/V, K4 on the e4m3
+    cache), each step a CUDA graph replay as on the bf16 paths. Checks
+    every turn completes with no -1, the launch counts, the pools and the
+    cache at half the bytes of bf16's (the same layouts on ``meta``);
+    reports each run's token agreement with its bf16 run (``bf16``: the
+    path's tokens and row) and both runs' rates, not gated: e4m3 rounds
+    the cached K/V, so the logits move. Then the cast helper
+    (``device.cast_to``) on the card against the CPU, bit for bit, on
+    every bf16 bit pattern and 2^20 f32 values."""
+    import numpy as np
+    from repro_torch.device import cast_to
+    from repro_torch.models import build
+    from repro_torch.serving import (EngineBackend, InferenceEngine,
+                                     PagedEngineBackend, PagedInferenceEngine,
+                                     SerializedPagedBackend)
+    from repro_torch.serving.paging.pool import PagedKVCache
+    f8 = torch.float8_e4m3fn
+    cfg8 = cfg.replace(kv_cache_dtype="float8_e4m3fn")
+    L = cfg.n_layers
+    legacy_kw = dict(num_blocks=8 * 64 + 1, block_size=16, max_batch=8,
+                     max_len=1024, prefill_chunk=32, megastep=False,
+                     device="cuda")
+    out, launches = {}, collections.Counter()
+    for path, ekw in (("main", MEGASTEP_ENGINE), ("legacy", legacy_kw)):
+        eng = PagedInferenceEngine(cfg8, params, **ekw)
+        if path == "main":
+            eng.compile_buckets()
+            backend = PagedEngineBackend(eng, max_new_tokens=NEW_TOKENS,
+                                         prompt_tokens=PROMPT_CAP,
+                                         new_tokens_jitter=JITTER)
+            want = lambda e: {"K1": L * e.steps_dispatched}
+        else:
+            backend = SerializedPagedBackend(eng, max_new_tokens=NEW_TOKENS,
+                                             prompt_tokens=PROMPT_CAP,
+                                             new_tokens_jitter=JITTER)
+            want = lambda e: {"K1": L * (e.jit_dispatches - e.decode_steps),
+                              "K2": L * e.decode_steps}
+        toks, row = _serve_fp8(torch, f"kv_fp8 {path}", eng, backend,
+                               prompts, want, _n_new)
+        pools = [t for s in eng.cache.pools() for t in s.values()]
+        ref = PagedKVCache(cfg, ekw["num_blocks"], ekw["block_size"],
+                           device="meta")
+        ref_pools = [t for s in ref.pools() for t in s.values()]
+        if {t.dtype for t in pools} != {f8} \
+                or 2 * _nbytes(pools) != _nbytes(ref_pools) \
+                or 2 * eng.cache.bytes_total != ref.bytes_total:
+            raise AssertionError(f"kv_fp8 {path}: pools {_nbytes(pools)} B "
+                                 f"against bf16's {_nbytes(ref_pools)} B")
+        out[path] = {**row, "pool_bytes": _nbytes(pools),
+                     "bf16_pool_bytes": _nbytes(ref_pools),
+                     "bf16_token_agreement": _agreement(toks, bf16[path][0])}
+        launches.update(row["launches"])
+        del eng, backend
+    eng = InferenceEngine(cfg8, params, max_slots=4, max_len=1024,
+                          device="cuda")
+    toks, row = _serve_fp8(
+        torch, "kv_fp8 dense", eng,
+        EngineBackend(eng, max_new_tokens=NEW_TOKENS), prompts,
+        lambda e: {"K3": L * (e.jit_dispatches - e.steps_dispatched),
+                   "K4": L * e.steps_dispatched}, lambda a: NEW_TOKENS)
+    state = list(eng.state.values())
+    ref_state = list(build(cfg).init_decode_state(
+        4, 1024, device="meta").values())
+    if {t.dtype for t in state} != {f8} \
+            or 2 * _nbytes(state) != _nbytes(ref_state):
+        raise AssertionError(f"kv_fp8 dense: cache {_nbytes(state)} B "
+                             f"against bf16's {_nbytes(ref_state)} B")
+    out["dense"] = {**row, "cache_bytes": _nbytes(state),
+                    "bf16_cache_bytes": _nbytes(ref_state),
+                    "bf16_token_agreement": _agreement(toks,
+                                                       bf16["dense"][0])}
+    launches.update(row["launches"])
+    del eng
+    for name in out:
+        out[name]["bf16_tokens_per_s"] = bf16[name][1]["tokens_per_s"]
+    bits = torch.from_numpy(np.arange(65536, dtype=np.uint16).view(np.int16))
+    xs = {"bf16_all_patterns": bits.view(torch.bfloat16),
+          "f32_random": torch.randn(1 << 20, generator=torch.Generator(
+              ).manual_seed(0)) * 300}
+    for name, x in xs.items():
+        if not torch.equal(cast_to(x.cuda(), f8).view(torch.uint8).cpu(),
+                           cast_to(x, f8).view(torch.uint8)):
+            raise AssertionError(f"kv_fp8: cast_to on the card differs from "
+                                 f"the CPU on {name}")
+    return {"paths": out, "launches": dict(launches),
+            "cast_on_card_equals_cpu": sorted(xs)}
 
 
 # --------------------------------------------------------------- serve
@@ -3642,23 +3932,48 @@ def dryrun_phase(torch, seed: int) -> dict:
     return {"launches": launches, **out}
 
 
+def _template_args(rest: str) -> list:
+    """The template arguments a mangled name's ``I...E`` list starts with:
+    float, bf16, fp8 (e4m3) or an int / bool literal; a substitution
+    (``S_``) repeats the type before it, as the kernels' repeated ones do."""
+    names = {"__nv_bfloat16": "bf16", "__nv_fp8_e4m3": "fp8"}
+    out, i = [], 1
+    while i < len(rest) and rest[i] != "E":
+        lit = re.match(r"L[a-z](\d+)E", rest[i:])
+        sub = re.match(r"S\d*_", rest[i:])
+        ident = re.match(r"(\d+)", rest[i:])
+        if rest[i] == "f":
+            out.append("float")
+            i += 1
+        elif lit:
+            out.append(lit.group(1))
+            i += lit.end()
+        elif sub:
+            out.append(out[-1] if out else "?")
+            i += sub.end()
+        elif ident:
+            n = int(ident.group(1))
+            name = rest[i + ident.end():i + ident.end() + n]
+            out.append(names.get(name, name))
+            i += ident.end() + n
+        else:
+            break
+    return out
+
+
 def _kernel_name(mangled: str) -> str:
     """name<template args> of a mangled kernel: the length-prefixed
     identifier ending in _kernel (a namespace hash may hold digits just
-    before its length), then its int and type arguments."""
+    before its length), then its type and int arguments."""
     for m in re.finditer(r"\d+", mangled):
         for i in range(len(m.group())):
             size = int(m.group()[i:])
             ident = mangled[m.end():m.end() + size]
             if len(ident) == size and ident.endswith("_kernel"):
                 rest = mangled[m.end() + size:]
-                t = re.match(r"I(.*?)EEv", rest)
-                targs = t.group(1) if t else ""
-                ty = ("float" if targs.startswith("f") else
-                      "bf16" if "bfloat16" in targs else None)
-                args = ([ty] if ty else []) + re.findall(r"L[ib](\d+)E",
-                                                         targs)
-                return f"{ident}<{','.join(args)}>" if t else ident
+                if not rest.startswith("I"):
+                    return ident
+                return f"{ident}<{','.join(_template_args(rest))}>"
     return mangled[:60]
 
 
@@ -3750,6 +4065,10 @@ def main() -> int:
              "K5": ssd_cases(torch, flush)}
     grads = {"K3": k3_grad_cases(torch, flush),
              "K5": ssd_grad_cases(torch, flush)}
+    fp8_rows = kv_fp8_cases(torch, flush)
+    fp8 = {k: [r for r in fp8_rows if r["kernel"] == k]
+           for k in ("K1", "K2", "K4")}
+    fp8["K1"].sort(key=lambda r: (r["dtype"] != "bfloat16", -r["C"]))
     # K1's headline is the widest bucket of the main path, C = 256
     cases["K1"].sort(key=lambda r: (r["dtype"] != "bfloat16", -r["C"]))
     # K3's the dense engine's longest prompt, sq = 96
@@ -3757,6 +4076,8 @@ def main() -> int:
                                     r["sq"] != 96, r["hkv"] != 1))
     emit({"phase": "kernels", "cases": sum(map(len, cases.values())),
           "gradient_cases": sum(map(len, grads.values())),
+          "fp8_cases": sum(map(len, fp8.values())),
+          "fp8_bitwise_upcast": True,
           "all_within_tol": True, "all_within_walk_tol": True,
           "bitwise_twin": True, "bitwise_repeat": True,
           "k2_equals_k1_at_c1": True})
@@ -3781,10 +4102,16 @@ def main() -> int:
 
     mega_toks, main = main_phase(torch, cfg, params, prompts, args.seed)
     done("main", {"init_s": t_init, **main})
-    legacy = legacy_phase(torch, cfg, params, prompts, mega_toks, args.seed)
+    legacy_toks, legacy = legacy_phase(torch, cfg, params, prompts,
+                                       mega_toks, args.seed)
     done("legacy", legacy)
-    dense = dense_phase(torch, cfg, params, prompts)
+    dense_toks, dense = dense_phase(torch, cfg, params, prompts)
     done("dense", dense)
+    kv8 = kv_fp8_phase(torch, cfg, params, prompts,
+                       {"main": (mega_toks, main), "legacy": (legacy_toks,
+                                                              legacy),
+                        "dense": (dense_toks, dense)})
+    done("kv_fp8", kv8)
     del params
     _free()
     serve = serve_phase(torch, args.seed)
@@ -3847,6 +4174,20 @@ def main() -> int:
         entry.update(train_forward_ms=rows[0]["forward_ms"],
                      train_backward_ms=rows[0]["backward_ms"],
                      train_backward_bound_ms=rows[0]["bound_ms"])
+    # the fp8 KV cache's variants (e4m3 K/V), their launches the kv_fp8
+    # phase's; beside each, the same kernel on the upcast pools in turns
+    # and SDPA on them (SDPA takes no fp8 K/V: library_ms is null)
+    for k, base in (("K1", kernels[0]), ("K2", kernels[1]),
+                    ("K4", kernels[3])):
+        entry = kernel_entry(f"{base['name']}[kv float8_e4m3fn]", fp8[k],
+                             kv8["launches"][k], base["source"],
+                             base["replaces"])
+        head = fp8[k][0]
+        entry.update(kv_dtype="float8_e4m3fn", fp8_ab_ms=head["fp8_ms"],
+                     upcast_ab_ms=head["upcast_ms"],
+                     sdpa_upcast_ms=head["sdpa_upcast_ms"],
+                     library_note=head["library_note"])
+        kernels.append(entry)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,6 +10,14 @@ Each run is its own process in its tree (its own ``chip_smoke.py``, sources
 and build directory). Every case prints one JSON line with its tree's
 label; then one line per case with both trees' median device ms. Needs a
 CUDA device, as ``chip_smoke.py`` does.
+
+    python3 kernel_ab.py --fp8
+
+instead A/Bs, in this tree and one process, K1, K2 and K4 on e4m3 pools
+(the fp8 KV cache) against the same kernels on the pools upcast to q's
+dtype: ``chip_smoke.py``'s ``kv_fp8_cases``, each timed in turns
+(upcast, fp8, fp8, upcast). One line per case with each turn's median
+device ms and the fp8 / upcast ratio of their means.
 """
 from __future__ import annotations
 
@@ -54,13 +62,26 @@ def run(tree: Path, label: str, cases: str) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--base", required=True, type=Path)
+    ap.add_argument("--base", type=Path)
     ap.add_argument("--cases", default="k1,k2")
+    ap.add_argument("--fp8", action="store_true",
+                    help="e4m3 pools against the upcast ones, this tree")
     args = ap.parse_args()
+    if args.base is None and not args.fp8:
+        ap.error("--base is required (or --fp8)")
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: needs a CUDA device", file=sys.stderr)
         return 2
+    if args.fp8:
+        for r in run(ROOT, "this", "kv_fp8"):
+            print(json.dumps({**{k: r.get(k) for k in IDENTITY},
+                              "kv_dtype": r["kv_dtype"],
+                              "upcast_turns_ms": r["upcast_turns_ms"],
+                              "fp8_turns_ms": r["fp8_turns_ms"],
+                              "fp8_over_upcast": r["fp8_ms"]
+                              / r["upcast_ms"]}), flush=True)
+        return 0
     base = args.base.resolve()
     times: dict = {}
     for label, tree in (("base", base), ("this", ROOT), ("this", ROOT),

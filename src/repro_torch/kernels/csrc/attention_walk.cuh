@@ -26,12 +26,19 @@
 // d. Masked keys enter no p.V product at all, and their scores are
 // replaced, not multiplied, so a NaN in a stale pool slot or in the
 // unfilled rows of a partial tile cannot reach the output.
+//
+// K/V may be e4m3 (KV = __nv_fp8_e4m3: K1's walk on an fp8 KV cache's
+// pages): the tiles are staged as their bytes and each element widened
+// exactly as it is read (hop::fp8_to_float), in the order the walk reads
+// K/V upcast to T, so it gives that walk's bits.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"  // the e4m3 widening
 
 namespace attn {
 
@@ -43,6 +50,9 @@ constexpr float kNegInf = -1e30f;
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) {
+  return hop::fp8_to_float(x.__x);
 }
 
 template <typename T>
@@ -93,19 +103,19 @@ __device__ __forceinline__ void stage_tile(T* k_dst, T* v_dst, const T* kp,
 // thread of the block; every thread stages and syncs, inactive warps
 // compute nothing). The warp's row is live when ``active``: qrow points at
 // its d query elements, orow at its dv outputs. ``tile(j, kp, vp, n)`` sets
-// the global addresses of tile j's first K and V rows and how many of its
-// TILE rows exist; the rest of the buffer keeps stale data, which is safe
-// because those keys lie past kv_len. smem holds two buffers of
-// TILE * (d + dv) elements. The denominator is floored at 1e-30, so a row
+// the global addresses of tile j's first K and V rows (KV elements: T, or
+// e4m3) and how many of its TILE rows exist; the rest of the buffer keeps
+// stale data, which is safe because those keys lie past kv_len. smem holds
+// two buffers of TILE * (d + dv) KV elements. The denominator is floored at 1e-30, so a row
 // that sees no key writes zeros. Where ``lse`` is given, the row's
 // log-sum-exp of its scaled scores, m + log(l), goes there (a gradient's
 // softmax normaliser).
-template <typename T, int TILE, typename TileFn>
+template <typename T, int TILE, typename KV = T, typename TileFn>
 __device__ __forceinline__ void attend(const T* qrow, T* orow, bool active,
                                        int qpos, int kv_len, int n_tiles,
                                        int k_stride, int v_stride, int d,
                                        int dv, float scale, TileFn tile,
-                                       T* smem, float* lse = nullptr) {
+                                       KV* smem, float* lse = nullptr) {
   const int lane = threadIdx.x & 31;
   const int buf_elems = TILE * (d + dv);
   float qr[kMaxPerLane];
@@ -119,17 +129,17 @@ __device__ __forceinline__ void attend(const T* qrow, T* orow, bool active,
   float m = kNegInf;
   float l = 0.f;
 
-  auto stage = [&](int j, T* dst) {
-    const T* kp;
-    const T* vp;
+  auto stage = [&](int j, KV* dst) {
+    const KV* kp;
+    const KV* vp;
     int n;
     tile(j, kp, vp, n);
     stage_tile(dst, dst + TILE * d, kp, vp, n, k_stride, v_stride, d, dv);
   };
   if (n_tiles > 0) stage(0, smem);
   for (int j = 0; j < n_tiles; ++j) {
-    const T* k_s = smem + (j & 1) * buf_elems;
-    const T* v_s = k_s + TILE * d;
+    const KV* k_s = smem + (j & 1) * buf_elems;
+    const KV* v_s = k_s + TILE * d;
     if (j + 1 < n_tiles) {
       stage(j + 1, smem + ((j + 1) & 1) * buf_elems);
       __pipeline_wait_prior(1);  // tile j has landed, j+1 may be in flight

@@ -11,7 +11,12 @@
 // - ldmatrix (plain and transposed) and the bf16 tensor-core product
 //   mma.sync m16n8k16 with float32 accumulators;
 // - a launch with an explicit block size that raises the kernel's dynamic
-//   shared memory limit past the default 48 KB when it needs more.
+//   shared memory limit past the default 48 KB when it needs more;
+// - the widening of e4m3 (float8_e4m3fn) K/V elements in registers, for
+//   an fp8 KV cache's pages: e4m3 -> fp16 is exact (fp16 holds every e4m3
+//   value, subnormals included), fp16 -> f32 and f32 -> bf16 too, and NaN
+//   stays NaN, so a kernel on fp8 pages computes on the values it would
+//   read from the same pages upcast.
 
 #pragma once
 
@@ -19,6 +24,8 @@
 #include <cstdint>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 namespace hop {
@@ -78,6 +85,25 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two e4m3 values (the low byte first) as floats, exactly.
+__device__ __forceinline__ float2 fp8x2_to_float2(uint32_t two) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(two & 0xffffu), __NV_E4M3);
+  return __half22float2(__half2(h));
+}
+
+// One e4m3 value as a float, exactly.
+__device__ __forceinline__ float fp8_to_float(uint8_t one) {
+  return fp8x2_to_float2(one).x;
+}
+
+// Two e4m3 values as a bf16 pair (the low byte in the low half), the
+// tensor cores' operand form, exactly.
+__device__ __forceinline__ uint32_t fp8x2_to_bf16x2(uint32_t two) {
+  const float2 f = fp8x2_to_float2(two);
+  return pack_bf16(f.x, f.y);
 }
 
 // Launch ``kernel`` with ``threads`` threads a block on the caller's

@@ -21,7 +21,15 @@
 //   - o = p.V with 16-byte V chunks per thread (threads sharing a chunk
 //     where there are fewer chunks than threads, their sums added in order).
 // Pass 2 (``merge``) merges the non-empty partials of a row in range order
-// and writes the output. No atomics, so every call gives the same bits.
+// and writes the output.
+//
+// K/V may be e4m3 (an fp8 KV cache, KV = __nv_fp8_e4m3) under f32 or bf16
+// q (T): the rows are staged as their e4m3 bytes (16 elements a 16-byte
+// chunk), and the products walk them in units of T's 16-byte chunk (kPer =
+// 16 / sizeof(T) elements: 4 at f32, 8 at bf16), each unit widened
+// exactly in registers (hop::fp8x2_to_float2). The units, their order, the
+// threads that share an output unit and every product and sum are those
+// of the same call on K/V upcast to T, so it gives that call's bits. No atomics, so every call gives the same bits.
 // Scores are in natural units (expf) for the decode pass 1, or in log2
 // units (exp2f) for the tensor-core paged prefill, which reuses ``merge``
 // with its M rows as the rows.
@@ -49,32 +57,80 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// q . (one 16-byte chunk of a key row), q as f32 at the chunk's columns
-__device__ __forceinline__ float dot16(uint4 raw, const float* qv, float) {
-  const float4 qf = *reinterpret_cast<const float4*>(qv);
-  return __uint_as_float(raw.x) * qf.x + __uint_as_float(raw.y) * qf.y +
-         __uint_as_float(raw.z) * qf.z + __uint_as_float(raw.w) * qf.w;
+using fp8 = __nv_fp8_e4m3;
+
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
 }
-__device__ __forceinline__ float dot16(uint4 raw, const float* qv,
-                                       __nv_bfloat16) {
+
+// One unit (T's 16-byte chunk: kPer elements) of a K or V row staged in
+// shared memory as KV, element c * kPer on, widened to floats: f32 units as
+// float4, bf16 units as four float2.
+template <typename T, typename KV>
+struct Unit;
+template <>
+struct Unit<float, float> {
+  float4 x;
+  __device__ __forceinline__ Unit(const unsigned char* row, int c) {
+    x = reinterpret_cast<const float4*>(row)[c];
+  }
+};
+template <>
+struct Unit<float, fp8> {
+  float4 x;
+  __device__ __forceinline__ Unit(const unsigned char* row, int c) {
+    const uint32_t w = reinterpret_cast<const uint32_t*>(row)[c];
+    const float2 lo = hop::fp8x2_to_float2(w);
+    const float2 hi = hop::fp8x2_to_float2(w >> 16);
+    x = make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+};
+template <>
+struct Unit<__nv_bfloat16, __nv_bfloat16> {
+  float2 x[4];
+  __device__ __forceinline__ Unit(const unsigned char* row, int c) {
+    const uint4 raw = reinterpret_cast<const uint4*>(row)[c];
+    x[0] = bf16x2_to_float2(raw.x);
+    x[1] = bf16x2_to_float2(raw.y);
+    x[2] = bf16x2_to_float2(raw.z);
+    x[3] = bf16x2_to_float2(raw.w);
+  }
+};
+template <>
+struct Unit<__nv_bfloat16, fp8> {
+  float2 x[4];
+  __device__ __forceinline__ Unit(const unsigned char* row, int c) {
+    const uint2 raw = reinterpret_cast<const uint2*>(row)[c];
+    x[0] = hop::fp8x2_to_float2(raw.x);
+    x[1] = hop::fp8x2_to_float2(raw.x >> 16);
+    x[2] = hop::fp8x2_to_float2(raw.y);
+    x[3] = hop::fp8x2_to_float2(raw.y >> 16);
+  }
+};
+
+// q . (one unit of a key row), q as f32 at the unit's columns
+__device__ __forceinline__ float dot_unit(const float4& x, const float* qv) {
+  const float4 qf = *reinterpret_cast<const float4*>(qv);
+  return x.x * qf.x + x.y * qf.y + x.z * qf.z + x.w * qf.w;
+}
+__device__ __forceinline__ float dot_unit(const float2 (&x)[4],
+                                          const float* qv) {
   const float4 q0 = *reinterpret_cast<const float4*>(qv);
   const float4 q1 = *reinterpret_cast<const float4*>(qv + 4);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  const float2 c = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.z));
-  const float2 e = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.w));
-  return a.x * q0.x + a.y * q0.y + b.x * q0.z + b.y * q0.w + c.x * q1.x +
-         c.y * q1.y + e.x * q1.z + e.y * q1.w;
+  return x[0].x * q0.x + x[0].y * q0.y + x[1].x * q0.z + x[1].y * q0.w +
+         x[2].x * q1.x + x[2].y * q1.y + x[3].x * q1.z + x[3].y * q1.w;
+}
+template <typename T, typename KV>
+__device__ __forceinline__ float dot16(const unsigned char* row, int c,
+                                       const float* qv) {
+  return dot_unit(Unit<T, KV>(row, c).x, qv);
 }
 
 // Shared memory of pass 1, in bytes from the start: K rows of kcs 16-byte
-// chunks, V rows of dv elements, q of the g heads as f32, the g x split
-// scores (then probabilities), each head's (m, l), and kThreads x 8 floats
-// of P.V partial sums where several threads share one output chunk.
+// chunks, V rows of dv elements (es bytes each: K/V's own size), q of the g
+// heads as f32, the g x split scores (then probabilities), each head's (m,
+// l), and kThreads x 8 floats of P.V partial sums where several threads
+// share one output unit.
 struct Layout {
   int kcs, k_bytes, v_bytes, q_off, s_off, ml_off, part_off, total;
   __host__ __device__ Layout(int split, int g, int d, int dv, int es) {
@@ -89,24 +145,26 @@ struct Layout {
   }
 };
 
-// acc[0..kPer) += p * (one 16-byte chunk of a V row)
-__device__ __forceinline__ void axpy16(float (&acc)[8], float p, uint4 raw,
-                                       float) {
-  acc[0] += p * __uint_as_float(raw.x);
-  acc[1] += p * __uint_as_float(raw.y);
-  acc[2] += p * __uint_as_float(raw.z);
-  acc[3] += p * __uint_as_float(raw.w);
+// acc[0..kPer) += p * (one unit of a V row)
+__device__ __forceinline__ void axpy_unit(float (&acc)[8], float p,
+                                          const float4& x) {
+  acc[0] += p * x.x;
+  acc[1] += p * x.y;
+  acc[2] += p * x.z;
+  acc[3] += p * x.w;
 }
-__device__ __forceinline__ void axpy16(float (&acc)[8], float p, uint4 raw,
-                                       __nv_bfloat16) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+__device__ __forceinline__ void axpy_unit(float (&acc)[8], float p,
+                                          const float2 (&x)[4]) {
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
-    const float2 f = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&w[u]));
-    acc[2 * u] += p * f.x;
-    acc[2 * u + 1] += p * f.y;
+    acc[2 * u] += p * x[u].x;
+    acc[2 * u + 1] += p * x[u].y;
   }
+}
+template <typename T, typename KV>
+__device__ __forceinline__ void axpy16(float (&acc)[8], float p,
+                                       const unsigned char* row, int c) {
+  axpy_unit(acc, p, Unit<T, KV>(row, c).x);
 }
 
 // A range with no key below the row's length: m = -inf, l = 0 for each of
@@ -122,10 +180,12 @@ __device__ __forceinline__ void empty_partial(float* ws_ml, int g,
 
 // Pass 1 of one block over the n >= 1 keys of its range (n <= split).
 // ``rows(t, kp, vp)`` sets the global addresses of range row t's K and V
-// rows; ``head(gi)`` is q-head gi of this kv head's group; ``part(gi)`` its
-// partial index into ws_o (rows of dv floats) and ws_ml (pairs). qb points
-// at row b's q (hq x d).
-template <typename T, typename RowFn, typename HeadFn, typename PartFn>
+// rows (of KV elements: T, or e4m3 under an fp8 cache); ``head(gi)`` is
+// q-head gi of this kv head's group; ``part(gi)`` its partial index into
+// ws_o (rows of dv floats) and ws_ml (pairs). qb points at row b's q
+// (hq x d).
+template <typename T, typename KV, typename RowFn, typename HeadFn,
+          typename PartFn>
 __device__ __forceinline__ void partial(const T* __restrict__ qb, int n,
                                         int split, int g, int d, int dv,
                                         float scale, RowFn rows, HeadFn head,
@@ -133,30 +193,32 @@ __device__ __forceinline__ void partial(const T* __restrict__ qb, int n,
                                         float* __restrict__ ws_ml,
                                         unsigned char* smem_raw) {
   const int tid = threadIdx.x;
-  const Layout lay(split, g, d, dv, (int)sizeof(T));
+  constexpr int es = (int)sizeof(KV);
+  const Layout lay(split, g, d, dv, es);
   unsigned char* sK = smem_raw;
-  const uint4* sV = reinterpret_cast<const uint4*>(smem_raw + lay.k_bytes);
+  const unsigned char* sV = smem_raw + lay.k_bytes;
   float* sQ = reinterpret_cast<float*>(smem_raw + lay.q_off);
   float* sS = reinterpret_cast<float*>(smem_raw + lay.s_off);
   float* sML = reinterpret_cast<float*>(smem_raw + lay.ml_off);
   float* sPart = reinterpret_cast<float*>(smem_raw + lay.part_off);
 
-  const int kc = d * (int)sizeof(T) / 16;
-  const int vc = dv * (int)sizeof(T) / 16;
-  for (int x = tid; x < n * kc; x += kThreads) {
-    const int t = x / kc;
-    const int c = x - t * kc;
-    const T* kp;
-    const T* vp;
+  // stage the rows in 16-byte chunks of KV
+  const int k16 = d * es / 16;
+  const int v16 = dv * es / 16;
+  for (int x = tid; x < n * k16; x += kThreads) {
+    const int t = x / k16;
+    const int c = x - t * k16;
+    const KV* kp;
+    const KV* vp;
     rows(t, kp, vp);
     hop::cp16(sK + (t * lay.kcs + c) * 16,
               reinterpret_cast<const char*>(kp) + c * 16, true);
   }
-  for (int x = tid; x < n * vc; x += kThreads) {
-    const int t = x / vc;
-    const int c = x - t * vc;
-    const T* kp;
-    const T* vp;
+  for (int x = tid; x < n * v16; x += kThreads) {
+    const int t = x / v16;
+    const int c = x - t * v16;
+    const KV* kp;
+    const KV* vp;
     rows(t, kp, vp);
     hop::cp16(smem_raw + lay.k_bytes + (size_t)x * 16,
               reinterpret_cast<const char*>(vp) + c * 16, true);
@@ -171,21 +233,23 @@ __device__ __forceinline__ void partial(const T* __restrict__ qb, int n,
 
   // scores: one (head, key) per thread, keys on neighbouring lanes; four
   // partial sums in a fixed order keep loads in flight
-  constexpr int kPer = 16 / (int)sizeof(T);  // elements per chunk
+  constexpr int kPer = 16 / (int)sizeof(T);  // elements per unit
+  const int kc = d / kPer;                   // units per row
+  const int vc = dv / kPer;
   for (int x = tid; x < g * n; x += kThreads) {
     const int gi = x / n;
     const int t = x - gi * n;
-    const uint4* kr = reinterpret_cast<const uint4*>(sK + t * lay.kcs * 16);
+    const unsigned char* kr = sK + t * lay.kcs * 16;
     const float* qv = sQ + gi * d;
     float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
     int c = 0;
     for (; c + 4 <= kc; c += 4) {
-      a0 += dot16(kr[c], qv + c * kPer, T());
-      a1 += dot16(kr[c + 1], qv + (c + 1) * kPer, T());
-      a2 += dot16(kr[c + 2], qv + (c + 2) * kPer, T());
-      a3 += dot16(kr[c + 3], qv + (c + 3) * kPer, T());
+      a0 += dot16<T, KV>(kr, c, qv + c * kPer);
+      a1 += dot16<T, KV>(kr, c + 1, qv + (c + 1) * kPer);
+      a2 += dot16<T, KV>(kr, c + 2, qv + (c + 2) * kPer);
+      a3 += dot16<T, KV>(kr, c + 3, qv + (c + 3) * kPer);
     }
-    for (; c < kc; ++c) a0 += dot16(kr[c], qv + c * kPer, T());
+    for (; c < kc; ++c) a0 += dot16<T, KV>(kr, c, qv + c * kPer);
     sS[gi * split + t] = ((a0 + a1) + (a2 + a3)) * scale;
   }
   __syncthreads();
@@ -212,9 +276,9 @@ __device__ __forceinline__ void partial(const T* __restrict__ qb, int n,
   }
   __syncthreads();
 
-  // o = p . V over the range: a thread owns one 16-byte chunk of one head's
-  // output; where there are fewer chunks than threads, kq threads share a
-  // chunk, each taking every kq-th key, and their sums are added in order
+  // o = p . V over the range: a thread owns one unit of one head's output;
+  // where there are fewer units than threads, kq threads share a unit, each
+  // taking every kq-th key, and their sums are added in order
   const int items = g * vc;
   int kq = 1;
   while (2 * kq * items <= kThreads && 2 * kq <= n) kq *= 2;
@@ -228,7 +292,8 @@ __device__ __forceinline__ void partial(const T* __restrict__ qb, int n,
     // unrolled for bf16; unrolled at f32, ptxas spills
     constexpr int kUnroll = kPer == 8 ? 4 : 1;
 #pragma unroll (kUnroll)
-    for (int t = gr; t < n; t += kq) axpy16(acc, pr[t], sV[t * vc + c], T());
+    for (int t = gr; t < n; t += kq)
+      axpy16<T, KV>(acc, pr[t], sV + (size_t)t * dv * es, c);
     float* dst = kq == 1 ? ws_o + part(gi) * dv + c * kPer
                          : sPart + (size_t)x * kPer;
 #pragma unroll

@@ -7,7 +7,13 @@
 // layout, k (b, S, hkv, d) and v (b, S, hkv, dv): no transpose and no
 // padding to block multiples. Row b sees keys k < its length (kv_lens[b],
 // or one length for every row), clamped to [0, S]. Float32 math from bf16
-// or f32 inputs, output in q's dtype, denominator floored at 1e-30.
+// or f32 inputs, output in q's dtype, denominator floored at 1e-30. The
+// cache may be e4m3 (an fp8 KV cache: kv_cache_dtype = float8_e4m3fn)
+// under either q: its rows are staged as bytes and each element widened
+// exactly in registers, in the units and order of the same call on the
+// cache upcast to q's dtype, whose bits it gives (split_k.cuh); the
+// Pallas kernel likewise upcasts its K/V blocks in the body (kernel.py:37,
+// :47).
 //
 // What bounds it on an H100 is the bytes of the visible K/V rows against
 // 3.35 TB/s, a few hundred kB at the paths' shapes: a microsecond or less.
@@ -43,10 +49,10 @@ namespace {
 using splitk::kMergeThreads;
 using splitk::kThreads;
 
-template <typename T>
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ kv_lens,
+decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                    const KV* __restrict__ v, const int* __restrict__ kv_lens,
                     int kv_len_all, float* __restrict__ ws_o,
                     float* __restrict__ ws_ml, int hq, int hkv, int d, int dv,
                     int S, int split, float scale, int g_major) {
@@ -69,11 +75,11 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   // cache row (b, t, kvh) sits at ((b * S + t) * hkv + kvh)
   const size_t row0 = ((size_t)b * S + k0) * hkv + kvh;
-  auto rows = [&](int t, const T*& kp, const T*& vp) {
+  auto rows = [&](int t, const KV*& kp, const KV*& vp) {
     kp = k + (row0 + (size_t)t * hkv) * d;
     vp = v + (row0 + (size_t)t * hkv) * dv;
   };
-  splitk::partial<T>(q + (size_t)b * hq * d, n, split, g, d, dv, scale, rows,
+  splitk::partial<T, KV>(q + (size_t)b * hq * d, n, split, g, d, dv, scale, rows,
                      head, part, ws_o, ws_ml, smem_raw);
 }
 
@@ -87,7 +93,7 @@ decode_merge_kernel(const float* __restrict__ ws_o,
   splitk::merge<T, false>(ws_o, ws_ml, out, hq, dv, n_split, sW);
 }
 
-template <typename T>
+template <typename T, typename KV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* kv_lens, void* out, float* ws_o, float* ws_ml,
                    int b, int hq, int hkv, int d, int dv, int S, int split,
@@ -95,12 +101,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    cudaStream_t stream) {
   const int g = hq / hkv;
   const int n_split = (S + split - 1) / split;
-  const splitk::Layout lay(split, g, d, dv, (int)sizeof(T));
+  const splitk::Layout lay(split, g, d, dv, (int)sizeof(KV));
   cudaError_t e = hop::launch(
-      decode_split_kernel<T>, dim3(n_split, hkv, b), kThreads,
+      decode_split_kernel<T, KV>, dim3(n_split, hkv, b), kThreads,
       (size_t)lay.total, stream, static_cast<const T*>(q),
-      static_cast<const T*>(k), static_cast<const T*>(v), kv_lens, kv_len_all,
-      ws_o, ws_ml, hq, hkv, d, dv, S, split, scale, g_major);
+      static_cast<const KV*>(k), static_cast<const KV*>(v), kv_lens,
+      kv_len_all, ws_o, ws_ml, hq, hkv, d, dv, S, split, scale, g_major);
   if (e != cudaSuccess) return e;
   return hop::launch(decode_merge_kernel<T>, dim3(hq, b), kMergeThreads,
                      2 * (size_t)n_split * sizeof(float), stream,
@@ -111,11 +117,13 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. kv_lens: a (b,) int32 vector, or null
+// dtype: 0 = float32, 1 = bfloat16 (q, out and the cache), plus 2 where
+// the cache is e4m3 (float8_e4m3fn). kv_lens: a (b,) int32 vector, or null
 // for one length kv_len_all on every row. ws_o: b * hq * n_split * dv
 // floats, ws_ml: b * hq * n_split * 2 floats, n_split = ceil(S / split).
 // Sizes are checked by the caller: hq % hkv == 0, d and dv <= 256 and rows
-// of whole 16-byte chunks, k and v 16-byte aligned, b, S, split >= 1.
+// of whole 16-byte chunks (of the cache's elements), k and v 16-byte
+// aligned, b, S, split >= 1.
 // Returns a cudaError_t as int (0 = success).
 extern "C" int decode_attention(int dtype, const void* q, const void* k,
                                 const void* v, const void* kv_lens,
@@ -127,15 +135,19 @@ extern "C" int decode_attention(int dtype, const void* q, const void* k,
   const int* kl = static_cast<const int*>(kv_lens);
   float* wo = static_cast<float*>(ws_o);
   float* wml = static_cast<float*>(ws_ml);
+  using bf16 = __nv_bfloat16;
+  using fp8 = splitk::fp8;
+#define DECODE(T, KV)                                                     \
+  launch<T, KV>(q, k, v, kl, out, wo, wml, b, hq, hkv, d, dv, S, split,   \
+                kv_len_all, scale, g_major, st)
   cudaError_t e;
-  if (dtype == 0) {
-    e = launch<float>(q, k, v, kl, out, wo, wml, b, hq, hkv, d, dv, S, split,
-                      kv_len_all, scale, g_major, st);
-  } else if (dtype == 1) {
-    e = launch<__nv_bfloat16>(q, k, v, kl, out, wo, wml, b, hq, hkv, d, dv, S,
-                              split, kv_len_all, scale, g_major, st);
-  } else {
-    e = cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: e = DECODE(float, float); break;
+    case 1: e = DECODE(bf16, bf16); break;
+    case 2: e = DECODE(float, fp8); break;
+    case 3: e = DECODE(bf16, fp8); break;
+    default: e = cudaErrorInvalidValue;
   }
+#undef DECODE
   return static_cast<int>(e);
 }

@@ -100,7 +100,9 @@ def sm_count(dev: torch.device) -> int:
 
 
 def kernel_plan(q, cache_k, cache_v):
-    """(split, n_split) the kernel runs with for these CUDA tensors."""
+    """(split, n_split) the kernel runs with for these CUDA tensors; an
+    fp8 cache plans as a cache of q's dtype, so it sums in that call's
+    order and gives its bits."""
     b, _, hq, d = q.shape
     S, hkv = cache_k.shape[1:3]
     limit = _max_split(hq // hkv, d, cache_v.shape[-1], q.element_size())
@@ -110,7 +112,8 @@ def kernel_plan(q, cache_k, cache_v):
 def decode_attention(q, cache_k, cache_v, kv_len, *, scale=None,
                      pairing: str = "kv_major"):
     """q: (b, 1, hq, d); cache_k/cache_v: (b, S, hkv, d|dv) in the model's
-    layout, read in place; kv_len: an int (every row) or a (b,) int32
+    layout, q's dtype or float8_e4m3fn (widened exactly as read), read in
+    place; kv_len: an int (every row) or a (b,) int32
     tensor, row b seeing keys ``< kv_len[b]``. Returns (b, 1, hq, dv) in
     q's dtype. CUDA tensors launch the kernel, CPU tensors take the plain
     version, meta tensors give the empty output."""
@@ -127,7 +130,8 @@ def decode_attention(q, cache_k, cache_v, kv_len, *, scale=None,
     dv = cache_v.shape[-1]
     per_row = torch.is_tensor(kv_len)
     launch.check_inputs({"q": q, "cache_k": cache_k, "cache_v": cache_v},
-                        {"kv_len": kv_len} if per_row else {})
+                        {"kv_len": kv_len} if per_row else {},
+                        kv=("cache_k", "cache_v"))
     if cache_k.shape[0] != b or dk != d \
             or cache_v.shape[:3] != cache_k.shape[:3] \
             or (per_row and kv_len.shape != (b,)):
@@ -154,7 +158,7 @@ def decode_attention(q, cache_k, cache_v, kv_len, *, scale=None,
                kv_len.data_ptr() if per_row else None, out.data_ptr(),
                ws_o.data_ptr(), ws_ml.data_ptr(), b, hq, hkv, d, dv, S,
                split, 0 if per_row else int(kv_len), float(scale),
-               launch.PAIRINGS[pairing])
+               launch.PAIRINGS[pairing], kv_dtype=cache_k.dtype)
     decode_attention.launches += 1
     return out
 

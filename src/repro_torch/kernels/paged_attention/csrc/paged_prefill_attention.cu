@@ -63,6 +63,17 @@
 //     ../../csrc/attention_walk.cuh with one page as the key tile, exact
 //     float32 on the CUDA cores. It serves the f32 parity runs only.
 //
+// The pools may be e4m3 (an fp8 KV cache, kv_cache_dtype = float8_e4m3fn)
+// under either q, as the Pallas kernels take any float K/V and upcast it in
+// the body (kernel.py:62, :72, :105, :116). Each route then reads the e4m3
+// bytes, half a bf16 pool's, and widens every element exactly
+// (../../csrc/hopper.cuh): the split decode and the walk as they read each
+// element, in the order of the same call on the pools upcast to q's dtype;
+// the tensor-core tiles, whose ldmatrix cannot widen 8-bit data, stage a
+// tile's bytes by cp.async into a two-stage byte ring and convert them into
+// one bf16 tile behind a __syncthreads, leaving the mma.sync loop as it is.
+// Every route so gives the bits of the same call on the upcast pools.
+//
 // Plain C interface (loaded with ctypes); launches on the caller's stream
 // and returns cudaGetLastError() so a refused launch is reported.
 
@@ -81,10 +92,10 @@ namespace {
 // past the tile's last visible position are skipped; that changes no bit
 // of the result, because the running max is finite after the first
 // visible key.
-template <typename T, int BLK>
+template <typename T, typename KV, int BLK>
 __global__ void __launch_bounds__(attn::kThreads)
-paged_walk_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                  const T* __restrict__ v_pool,
+paged_walk_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
+                  const KV* __restrict__ v_pool,
                   const int* __restrict__ cache_lens,
                   const int* __restrict__ valids,
                   const int* __restrict__ page_tables, T* __restrict__ out,
@@ -109,29 +120,29 @@ paged_walk_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 
   const int* pt = page_tables + (size_t)b * npages;
   // pool element (bid, t, kvh, e) sits at ((bid * blk + t) * hkv + kvh) * d
-  auto page = [&](int j, const T*& kp, const T*& vp, int& n) {
+  auto page = [&](int j, const KV*& kp, const KV*& vp, int& n) {
     const size_t base = (size_t)pt[j] * BLK * hkv + kvh;
     kp = k_pool + base * d;
     vp = v_pool + base * dv;
     n = BLK;
   };
   const size_t row = (size_t)(b * C + i) * hq + h;
-  attn::attend<T, BLK>(q + row * d, out + row * dv, r < rows, off + i,
-                       kv_len, n_pages, hkv * d, hkv * dv, d, dv, scale,
-                       page, reinterpret_cast<T*>(smem_raw));
+  attn::attend<T, BLK, KV>(q + row * d, out + row * dv, r < rows, off + i,
+                           kv_len, n_pages, hkv * d, hkv * dv, d, dv, scale,
+                           page, reinterpret_cast<KV*>(smem_raw));
 }
 
-template <int BLK>
-cudaError_t launch_walk(const float* q, const float* k_pool,
-                        const float* v_pool, const int* cache_lens,
+template <typename KV, int BLK>
+cudaError_t launch_walk(const float* q, const KV* k_pool,
+                        const KV* v_pool, const int* cache_lens,
                         const int* valids, const int* page_tables,
                         float* out, int b, int C, int hq, int hkv, int d,
                         int dv, int npages, float scale, int g_major,
                         cudaStream_t stream) {
   const int g = hq / hkv;
   const dim3 grid((C * g + attn::kWarps - 1) / attn::kWarps, hkv, b);
-  const size_t smem = 2 * (size_t)BLK * (d + dv) * sizeof(float);
-  return attn::launch(paged_walk_kernel<float, BLK>, grid, smem, stream, q,
+  const size_t smem = 2 * (size_t)BLK * (d + dv) * sizeof(KV);
+  return attn::launch(paged_walk_kernel<float, KV, BLK>, grid, smem, stream, q,
                       k_pool, v_pool, cache_lens, valids, page_tables, out,
                       C, hq, hkv, d, dv, npages, scale, g_major);
 }
@@ -147,10 +158,10 @@ int split_smem(int split, int g, int d, int dv, int es, int blk_shift) {
 
 // lens: the rows' lengths (K2), or cache_lens when valids is given (K1 at
 // C = 1: length max(cache_lens + valids, 1)). split is a multiple of blk.
-template <typename T>
+template <typename T, typename KV>
 __global__ void __launch_bounds__(splitk::kThreads)
-paged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                   const T* __restrict__ v_pool, const int* __restrict__ lens,
+paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
+                   const KV* __restrict__ v_pool, const int* __restrict__ lens,
                    const int* __restrict__ valids,
                    const int* __restrict__ page_tables,
                    float* __restrict__ ws_o, float* __restrict__ ws_ml,
@@ -177,22 +188,22 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
   // the range's page ids, read once (k0 is a multiple of blk)
   int* sPid = reinterpret_cast<int*>(
-      smem_raw + splitk::Layout(split, g, d, dv, (int)sizeof(T)).total);
+      smem_raw + splitk::Layout(split, g, d, dv, (int)sizeof(KV)).total);
   const int* pt = page_tables + (size_t)b * npages + (k0 >> blk_shift);
   const int n_pg = ((n - 1) >> blk_shift) + 1;
   for (int x = threadIdx.x; x < n_pg; x += splitk::kThreads) sPid[x] = pt[x];
   __syncthreads();
   // pool row (bid, t, kvh) sits at ((bid * blk + t) * hkv + kvh)
   const int blk_mask = (1 << blk_shift) - 1;
-  auto rows = [&](int t, const T*& kp, const T*& vp) {
+  auto rows = [&](int t, const KV*& kp, const KV*& vp) {
     const size_t row =
         (((size_t)sPid[t >> blk_shift] << blk_shift) | (t & blk_mask)) *
             hkv + kvh;
     kp = k_pool + row * d;
     vp = v_pool + row * dv;
   };
-  splitk::partial<T>(q + (size_t)b * hq * d, n, split, g, d, dv, scale, rows,
-                     head, part, ws_o, ws_ml, smem_raw);
+  splitk::partial<T, KV>(q + (size_t)b * hq * d, n, split, g, d, dv, scale,
+                         rows, head, part, ws_o, ws_ml, smem_raw);
 }
 
 // One block per (row b, output row h of R): merge the n_split partials;
@@ -217,7 +228,7 @@ cudaError_t launch_merge(const float* ws_o, const float* ws_ml, void* out,
                      ws_ml, static_cast<T*>(out), R, dv, n_split);
 }
 
-template <typename T>
+template <typename T, typename KV>
 cudaError_t launch_split(const void* q, const void* k_pool,
                          const void* v_pool, const int* lens,
                          const int* valids, const int* page_tables,
@@ -228,10 +239,10 @@ cudaError_t launch_split(const void* q, const void* k_pool,
   const int g = hq / hkv;
   const int n_split = ((npages << blk_shift) + split - 1) / split;
   cudaError_t e = hop::launch(
-      paged_split_kernel<T>, dim3(n_split, hkv, b), splitk::kThreads,
-      (size_t)split_smem(split, g, d, dv, (int)sizeof(T), blk_shift), stream,
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), lens, valids, page_tables, ws_o, ws_ml,
+      paged_split_kernel<T, KV>, dim3(n_split, hkv, b), splitk::kThreads,
+      (size_t)split_smem(split, g, d, dv, (int)sizeof(KV), blk_shift), stream,
+      static_cast<const T*>(q), static_cast<const KV*>(k_pool),
+      static_cast<const KV*>(v_pool), lens, valids, page_tables, ws_o, ws_ml,
       hq, hkv, d, dv, npages, blk_shift, split, scale, g_major);
   if (e != cudaSuccess) return e;
   return launch_merge<T, false>(ws_o, ws_ml, out, b, hq, dv, n_split,
@@ -241,6 +252,7 @@ cudaError_t launch_split(const void* q, const void* k_pool,
 // ------------------------------------ bf16, C > 1: tensor-core M tiles
 
 using bf16 = __nv_bfloat16;
+using fp8 = splitk::fp8;
 
 constexpr int kTcThreads = 128;  // one warpgroup
 constexpr int kM = 64;           // query rows per block, 16 per warp
@@ -261,14 +273,46 @@ struct Tc {
   static constexpr bool kQRegs = W <= 128;      // Q held in registers
 };
 
+// Shared memory of the tensor-core kernel, in bytes: Q (then O) rows,
+// ``stages`` bf16 K and V tiles, then for e4m3 pools a two-stage ring of
+// the tiles' bytes, then the range's page ids.
+struct TcLayout {
+  size_t k_off, v_off, b8_off, pid_off, total;
+  __host__ __device__ TcLayout(int kN, int d16, int dv16, bool fp8_kv,
+                               int pages) {
+    const int stages = fp8_kv ? 1 : 2;
+    k_off = (size_t)kM * ((d16 > dv16 ? d16 : dv16) + 8) * sizeof(bf16);
+    v_off = k_off + (size_t)stages * kN * (d16 + 8) * sizeof(bf16);
+    b8_off = v_off + (size_t)stages * kN * (dv16 + 8) * sizeof(bf16);
+    pid_off = b8_off + (fp8_kv ? 2 * (size_t)kN * (d16 + dv16) : 0);
+    total = pid_off + (size_t)pages * sizeof(int);
+  }
+};
+
+// 16 e4m3 values at src as 16 bf16 at dst (both 16-byte aligned), exactly.
+__device__ __forceinline__ void widen16(bf16* dst, const unsigned char* src) {
+  const uint4 in = *reinterpret_cast<const uint4*>(src);
+  const uint4 lo = make_uint4(
+      hop::fp8x2_to_bf16x2(in.x), hop::fp8x2_to_bf16x2(in.x >> 16),
+      hop::fp8x2_to_bf16x2(in.y), hop::fp8x2_to_bf16x2(in.y >> 16));
+  const uint4 hi = make_uint4(
+      hop::fp8x2_to_bf16x2(in.z), hop::fp8x2_to_bf16x2(in.z >> 16),
+      hop::fp8x2_to_bf16x2(in.w), hop::fp8x2_to_bf16x2(in.w >> 16));
+  reinterpret_cast<uint4*>(dst)[0] = lo;
+  reinterpret_cast<uint4*>(dst)[1] = hi;
+}
+
 // Grid (n_mt * n_split, hkv, b): M tile (longest first) x key range. With
 // n_split = 1 the block writes its rows' outputs; otherwise f32 partials
 // (m in log2 units, l, unnormalised o) per (output row, range) for
-// paged_merge_kernel<bf16, true>.
-template <int W, int DK, int DV>
+// paged_merge_kernel<bf16, true>. KV: the pools' type, bf16 (tiles staged
+// by cp.async into a two-stage ring of bf16 tiles) or e4m3 (staged into a
+// two-stage byte ring, each tile converted into the one bf16 tile just
+// before its products; d and dv are then multiples of 16).
+template <int W, int DK, int DV, typename KV>
 __global__ void __launch_bounds__(kTcThreads)
-paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
-                const bf16* __restrict__ v_pool,
+paged_tc_kernel(const bf16* __restrict__ q, const KV* __restrict__ k_pool,
+                const KV* __restrict__ v_pool,
                 const int* __restrict__ cache_lens,
                 const int* __restrict__ valids,
                 const int* __restrict__ page_tables, bf16* __restrict__ out,
@@ -277,6 +321,8 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
                 int split, int n_split, float scale_log2, int g_major) {
   using Cfg = Tc<W>;
   constexpr int kN = Cfg::kN;
+  constexpr bool kFp8 = sizeof(KV) == 1;
+  constexpr int kStages = kFp8 ? 1 : 2;  // bf16 K/V tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if (DK) d = DK;  // an exact build: the dims fold into constants
   if (DV) dv = DV;
@@ -295,10 +341,12 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
   const int qs = max(d16, dv16) + 8;  // row strides in elements: +16 bytes
   const int ks = d16 + 8;
   const int vs = dv16 + 8;
+  const TcLayout lay(kN, d16, dv16, kFp8, 0);
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // Q, then O
-  bf16* sK = sQ + kM * qs;                        // two stages
-  bf16* sV = sK + 2 * kN * ks;                    // two stages
-  int* sPid = reinterpret_cast<int*>(sV + 2 * kN * vs);
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw + lay.k_off);
+  bf16* sV = reinterpret_cast<bf16*>(smem_raw + lay.v_off);
+  unsigned char* sB8 = smem_raw + lay.b8_off;    // e4m3 bytes, two stages
+  int* sPid = reinterpret_cast<int*>(smem_raw + lay.pid_off);
 
   auto head = [&](int gi) { return g_major ? gi * hkv + kvh : kvh * g + gi; };
   // output row of tile row R: (b, position R / g, head R % g of the group)
@@ -329,13 +377,13 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
   // zero the 16-byte chunk that pads a row to a multiple of 16 elements
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   if (d & 15) {
-    for (int r = tid; r < kM + 2 * kN; r += kTcThreads) {
+    for (int r = tid; r < kM + kStages * kN; r += kTcThreads) {
       bf16* row = r < kM ? sQ + r * qs : sK + (r - kM) * ks;
       *reinterpret_cast<uint4*>(row + d) = zero;
     }
   }
   if (dv & 15) {
-    for (int r = tid; r < 2 * kN; r += kTcThreads)
+    for (int r = tid; r < kStages * kN; r += kTcThreads)
       *reinterpret_cast<uint4*>(sV + r * vs + dv) = zero;
   }
 
@@ -357,31 +405,61 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
 
   // key tile j of the range into stage st: pool row of key ``key`` is
   // ((page id << blk_shift | key % blk) * hkv + kvh); zeros at k_hi and
-  // past it (never read: src is then the pool's first row)
+  // past it (never read: src is then the pool's first row). bf16 rows go
+  // into the bf16 tiles, e4m3 rows (16 elements a chunk) into the byte
+  // ring, rows of d then dv bytes
   const int blk_mask = (1 << blk_shift) - 1;
   auto pool_row = [&](int key) {
     return (((size_t)sPid[(key >> blk_shift) - p0] << blk_shift) |
             (key & blk_mask)) * hkv + kvh;
   };
+  constexpr int kE = 16 / (int)sizeof(KV);  // elements per 16-byte chunk
   auto stage = [&](int j, int st) {
-    bf16* dk = sK + st * kN * ks;
-    bf16* dvp = sV + st * kN * vs;
     const int kb = k_lo + j * kN;
-    const int kc = d >> 3;
-    const int vc = dv >> 3;
+    const int kc = d / kE;
+    const int vc = dv / kE;
+    unsigned char* b8 = sB8 + (size_t)st * kN * (d + dv);
     for (int x = tid; x < kN * kc; x += kTcThreads) {
       const int t = x / kc;
       const int c = x - t * kc;
       const bool ok = kb + t < k_hi;
-      hop::cp16(dk + t * ks + c * 8,
-                k_pool + (ok ? pool_row(kb + t) * d : 0) + c * 8, ok);
+      void* dst;
+      if constexpr (kFp8) {
+        dst = b8 + t * d + c * 16;
+      } else {
+        dst = sK + st * kN * ks + t * ks + c * 8;
+      }
+      hop::cp16(dst, k_pool + (ok ? pool_row(kb + t) * d : 0) + c * kE, ok);
     }
     for (int x = tid; x < kN * vc; x += kTcThreads) {
       const int t = x / vc;
       const int c = x - t * vc;
       const bool ok = kb + t < k_hi;
-      hop::cp16(dvp + t * vs + c * 8,
-                v_pool + (ok ? pool_row(kb + t) * dv : 0) + c * 8, ok);
+      void* dst;
+      if constexpr (kFp8) {
+        dst = b8 + kN * d + t * dv + c * 16;
+      } else {
+        dst = sV + st * kN * vs + t * vs + c * 8;
+      }
+      hop::cp16(dst, v_pool + (ok ? pool_row(kb + t) * dv : 0) + c * kE,
+                ok);
+    }
+  };
+  // e4m3 only: stage st's bytes (landed, behind a __syncthreads) widened
+  // into the bf16 K and V tiles; zero bytes give zeros
+  auto widen = [&](int st) {
+    const unsigned char* b8 = sB8 + (size_t)st * kN * (d + dv);
+    const int kc = d >> 4;
+    const int vc = dv >> 4;
+    for (int x = tid; x < kN * kc; x += kTcThreads) {
+      const int t = x / kc;
+      const int c = x - t * kc;
+      widen16(sK + t * ks + c * 16, b8 + t * d + c * 16);
+    }
+    for (int x = tid; x < kN * vc; x += kTcThreads) {
+      const int t = x / vc;
+      const int c = x - t * vc;
+      widen16(sV + t * vs + c * 16, b8 + kN * d + t * dv + c * 16);
     }
   };
   stage(0, 0);
@@ -427,8 +505,12 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
 
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j & 1;
-    const bf16* tK = sK + st * kN * ks;
-    const bf16* tV = sV + st * kN * vs;
+    if constexpr (kFp8) {
+      widen(st);
+      __syncthreads();
+    }
+    const bf16* tK = sK + (kFp8 ? 0 : st) * kN * ks;
+    const bf16* tV = sV + (kFp8 ? 0 : st) * kN * vs;
     float s[Cfg::kSTiles][4];
 #pragma unroll
     for (int nt = 0; nt < Cfg::kSTiles; ++nt)
@@ -520,7 +602,7 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
       }
     }
 
-    __syncthreads();  // every warp is done with stage st
+    __syncthreads();  // every warp is done with stage st (and the tile)
     if (j + 2 < n_tiles) {
       stage(j + 2, st);
       hop::cp_commit();
@@ -592,7 +674,7 @@ paged_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
   }
 }
 
-template <int W, int DK = 0, int DV = 0>
+template <typename KV, int W, int DK = 0, int DV = 0>
 cudaError_t launch_tc(const void* q, const void* k_pool, const void* v_pool,
                       const int* cache_lens, const int* valids,
                       const int* page_tables, void* out, float* ws_o,
@@ -606,15 +688,11 @@ cudaError_t launch_tc(const void* q, const void* k_pool, const void* v_pool,
   const int n_mt = (C * g + kM - 1) / kM;
   const int n_split = ((npages << blk_shift) + split - 1) / split;
   const int pages = (split + (1 << blk_shift) - 1) >> blk_shift;
-  const size_t smem = ((size_t)kM * (std::max(d16, dv16) + 8) +
-                       2 * (size_t)kN * (d16 + 8) +
-                       2 * (size_t)kN * (dv16 + 8)) *
-                          sizeof(bf16) +
-                      (size_t)pages * sizeof(int);
+  const size_t smem = TcLayout(kN, d16, dv16, sizeof(KV) == 1, pages).total;
   cudaError_t e = hop::launch(
-      paged_tc_kernel<W, DK, DV>, dim3(n_mt * n_split, hkv, b), kTcThreads,
-      smem, stream, static_cast<const bf16*>(q),
-      static_cast<const bf16*>(k_pool), static_cast<const bf16*>(v_pool),
+      paged_tc_kernel<W, DK, DV, KV>, dim3(n_mt * n_split, hkv, b),
+      kTcThreads, smem, stream, static_cast<const bf16*>(q),
+      static_cast<const KV*>(k_pool), static_cast<const KV*>(v_pool),
       cache_lens, valids, page_tables, static_cast<bf16*>(out), ws_o, ws_ml,
       C, hq, hkv, d, dv, npages, blk_shift, split, n_split,
       scale * 1.4426950408889634f, g_major);
@@ -623,6 +701,7 @@ cudaError_t launch_tc(const void* q, const void* k_pool, const void* v_pool,
                                   stream);
 }
 
+template <typename KV>
 cudaError_t dispatch_tc(const void* q, const void* k_pool,
                         const void* v_pool, const int* cache_lens,
                         const int* valids, const int* page_tables, void* out,
@@ -633,11 +712,11 @@ cudaError_t dispatch_tc(const void* q, const void* k_pool,
   const int d16 = (d + 15) & ~15;
   const int dv16 = (dv + 15) & ~15;
   const int w = std::max(d16, dv16);
-#define PAGED_TC(...)                                                        \
-  return launch_tc<__VA_ARGS__>(q, k_pool, v_pool, cache_lens, valids,       \
-                                page_tables, out, ws_o, ws_ml, b, C, hq, hkv, \
-                                d, dv, blk_shift, npages, split, scale,       \
-                                g_major, st)
+#define PAGED_TC(...)                                                      \
+  return launch_tc<KV, __VA_ARGS__>(q, k_pool, v_pool, cache_lens, valids, \
+                                    page_tables, out, ws_o, ws_ml, b, C, hq, \
+                                    hkv, d, dv, blk_shift, npages, split,    \
+                                    scale, g_major, st)
   if (d == dv && d == 256) PAGED_TC(256, 256, 256);  // gemma-2b
   if (w <= 64) PAGED_TC(64);
   if (w <= 128) PAGED_TC(128);
@@ -649,9 +728,10 @@ int log2_blk(int blk) { return blk == 8 ? 3 : blk == 16 ? 4 : -1; }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Sizes are checked by the caller:
-// hq % hkv == 0, d and dv <= 256 and rows of whole 16-byte chunks, pools
-// and q 16-byte aligned, blk in {8, 16}, b, npages >= 1, C >= 2, every
+// dtype: 0 = float32, 1 = bfloat16 (q, out and the pools), plus 2 where the
+// pools are e4m3 (float8_e4m3fn). Sizes are checked by the caller:
+// hq % hkv == 0, d and dv <= 256 and rows of whole 16-byte chunks (of the
+// pools' elements), pools and q 16-byte aligned, blk in {8, 16}, b, npages >= 1, C >= 2, every
 // page table entry a valid block id. bf16 (tensor cores): split is a
 // multiple of the key tile (32 keys above 128-wide heads, else 64) or
 // npages * blk; ws_o: b * C * hq * n_split * dv floats and ws_ml
@@ -671,21 +751,31 @@ extern "C" int paged_prefill_attention(
   const int blk_shift = log2_blk(blk);
   cudaError_t e = cudaErrorInvalidValue;
   if (blk_shift < 0 || C < 2) return static_cast<int>(e);
-  if (dtype == 0) {
-    const float* qf = static_cast<const float*>(q);
-    const float* kf = static_cast<const float*>(k_pool);
-    const float* vf = static_cast<const float*>(v_pool);
-    float* of = static_cast<float*>(out);
-    e = blk == 8 ? launch_walk<8>(qf, kf, vf, cl, va, pt, of, b, C, hq, hkv,
-                                  d, dv, npages, scale, g_major, st)
-                 : launch_walk<16>(qf, kf, vf, cl, va, pt, of, b, C, hq,
-                                   hkv, d, dv, npages, scale, g_major, st);
-  } else if (dtype == 1) {
-    e = dispatch_tc(q, k_pool, v_pool, cl, va, pt, out,
-                    static_cast<float*>(ws_o), static_cast<float*>(ws_ml), b,
-                    C, hq, hkv, d, dv, blk_shift, npages, split, scale,
-                    g_major, st);
+  const float* qf = static_cast<const float*>(q);
+  float* of = static_cast<float*>(out);
+  float* wo = static_cast<float*>(ws_o);
+  float* wml = static_cast<float*>(ws_ml);
+#define WALK(KV)                                                             \
+  (blk == 8 ? launch_walk<KV, 8>(qf, static_cast<const KV*>(k_pool),         \
+                                 static_cast<const KV*>(v_pool), cl, va, pt, \
+                                 of, b, C, hq, hkv, d, dv, npages, scale,    \
+                                 g_major, st)                                \
+            : launch_walk<KV, 16>(qf, static_cast<const KV*>(k_pool),        \
+                                  static_cast<const KV*>(v_pool), cl, va,    \
+                                  pt, of, b, C, hq, hkv, d, dv, npages,      \
+                                  scale, g_major, st))
+#define TC(KV)                                                               \
+  dispatch_tc<KV>(q, k_pool, v_pool, cl, va, pt, out, wo, wml, b, C, hq,     \
+                  hkv, d, dv, blk_shift, npages, split, scale, g_major, st)
+  switch (dtype) {
+    case 0: e = WALK(float); break;
+    case 1: e = TC(bf16); break;
+    case 2: e = WALK(fp8); break;
+    case 3: e = TC(fp8); break;
+    default: break;
   }
+#undef WALK
+#undef TC
   return static_cast<int>(e);
 }
 
@@ -708,14 +798,16 @@ extern "C" int paged_decode_attention(
   const int blk_shift = log2_blk(blk);
   cudaError_t e = cudaErrorInvalidValue;
   if (blk_shift < 0 || split % blk) return static_cast<int>(e);
-  if (dtype == 0) {
-    e = launch_split<float>(q, k_pool, v_pool, ln, va, pt, out, wo, wml, b,
-                            hq, hkv, d, dv, blk_shift, npages, split, scale,
-                            g_major, st);
-  } else if (dtype == 1) {
-    e = launch_split<bf16>(q, k_pool, v_pool, ln, va, pt, out, wo, wml, b,
-                           hq, hkv, d, dv, blk_shift, npages, split, scale,
-                           g_major, st);
+#define SPLIT(T, KV)                                                          \
+  launch_split<T, KV>(q, k_pool, v_pool, ln, va, pt, out, wo, wml, b, hq,     \
+                      hkv, d, dv, blk_shift, npages, split, scale, g_major, st)
+  switch (dtype) {
+    case 0: e = SPLIT(float, float); break;
+    case 1: e = SPLIT(bf16, bf16); break;
+    case 2: e = SPLIT(float, fp8); break;
+    case 3: e = SPLIT(bf16, fp8); break;
+    default: break;
   }
+#undef SPLIT
   return static_cast<int>(e);
 }

@@ -22,6 +22,12 @@ per-row view, reshaped into a pool whose page table is ``b*npages + j``.
 Its output must equal the paged call's bit for bit, which pins the page
 walk apart from float associativity.
 
+The pools may be float8_e4m3fn (an fp8 KV cache) under bf16 or f32 q:
+each kernel then reads e4m3 pages and widens every element exactly in
+registers, with the plan of the same call on the pools upcast to q's dtype
+(``kernel_plan``), so it gives that call's bits; the plain versions upcast
+the gathered pages.
+
 On ``meta`` tensors each wrapper returns an empty output of its kernel's
 shape and dtype, never the plain version, after allocating the workspace a
 launch would (``kernel_plan`` plans ``meta`` as ``da.sm_count`` says). On
@@ -86,7 +92,8 @@ def prefill_plan(npages: int, blk: int, b: int, C: int, hq: int, hkv: int,
 
 def kernel_plan(q, k_pool, v_pool, page_tables) -> dict:
     """The kernel a CUDA call with these shapes runs, its key ranges and
-    its grids (pass 1, then the merge where there is one)."""
+    its grids (pass 1, then the merge where there is one). Fp8 pools plan
+    as pools of q's dtype: their call sums in that call's order."""
     b, C, hq, d = q.shape
     blk, hkv = k_pool.shape[1:3]
     dv = v_pool.shape[-1]
@@ -114,7 +121,8 @@ def _check_pools(q, k_pool, v_pool, page_tables, ints: dict):
     blk, hkv, dk = k_pool.shape[1:]
     dv = v_pool.shape[-1]
     launch.check_inputs({"q": q, "k_pool": k_pool, "v_pool": v_pool},
-                        {**ints, "page_tables": page_tables})
+                        {**ints, "page_tables": page_tables},
+                        kv=("k_pool", "v_pool"))
     if dk != d or v_pool.shape[:3] != k_pool.shape[:3]:
         raise ValueError(f"pool shapes {tuple(k_pool.shape)} / "
                          f"{tuple(v_pool.shape)} do not match q "
@@ -158,7 +166,7 @@ def _split_decode(q, k_pool, v_pool, lens, valids, page_tables, scale,
                None if valids is None else valids.data_ptr(),
                page_tables.data_ptr(), out.data_ptr(), ws_o, ws_ml, b, hq,
                hkv, d, dv, blk, page_tables.shape[1], plan["split"],
-               float(scale), launch.PAIRINGS[pairing])
+               float(scale), launch.PAIRINGS[pairing], kv_dtype=k_pool.dtype)
     return out
 
 
@@ -166,7 +174,8 @@ def paged_prefill_attention(q, k_pool, v_pool, cache_lens, valids,
                             page_tables, *, scale=None,
                             pairing: str = "kv_major"):
     """q: (b, C, hq, d) mixed prefill/decode rows; k_pool/v_pool:
-    (nb, blk, hkv, d|dv); cache_lens/valids: (b,) int32; page_tables:
+    (nb, blk, hkv, d|dv), q's dtype or float8_e4m3fn; cache_lens/valids:
+    (b,) int32; page_tables:
     (b, npages) int32 block ids in position order, entries past the live
     length pointing at valid blocks (the null block 0). ``pairing`` as in
     ``ref.paged_prefill_attention_ref``. Returns (b, C, hq, dv) in q's
@@ -205,7 +214,8 @@ def paged_prefill_attention(q, k_pool, v_pool, cache_lens, valids,
                    valids.data_ptr(), page_tables.data_ptr(),
                    out.data_ptr(), ws_o, ws_ml, b, C, hq, k_pool.shape[2],
                    d, dv, k_pool.shape[1], page_tables.shape[1],
-                   plan["split"], float(scale), launch.PAIRINGS[pairing])
+                   plan["split"], float(scale), launch.PAIRINGS[pairing],
+                   kv_dtype=k_pool.dtype)
     if q.device.type == "cuda":
         paged_prefill_attention.launches += 1
     return out

@@ -4,7 +4,9 @@ Compute what ``repro.kernels.paged_attention.ref`` computes: each row's
 pages are gathered in table order into a contiguous view, then a masked
 softmax runs with per-row offsets and valid lengths. The wrappers in
 ``ops`` take these for CPU tensors; on the card they are what the CUDA
-kernels are held against. In the prefill form ``NEG_INF`` stays -1e30 (not
+kernels are held against. Float8 pools are upcast as they are read (the
+gathered pages widened to float32, exactly), as the reference's kernels
+and paths upcast them. In the prefill form ``NEG_INF`` stays -1e30 (not
 -inf) and the denominator keeps its 1e-30 floor, so fully padded rows give
 finite garbage and never NaN; the decode form masks with -inf, as the
 reference's does, and needs ``lens >= 1``.
@@ -21,6 +23,7 @@ import math
 
 import torch
 
+from repro_torch.device import bits
 from repro_torch.kernels.decode_attention.ref import \
     decode_attention_split_ref
 from repro_torch.kernels.flash_attention.ref import BLOCK_M, key_tile
@@ -31,10 +34,12 @@ NEG_INF = -1e30
 
 def gather_pages(pool: torch.Tensor, page_tables: torch.Tensor):
     """pool: (nb, blk, hkv, d); page_tables: (b, npages) ->
-    (b, npages*blk, hkv, d) contiguous per-row view (position order)."""
+    (b, npages*blk, hkv, d) contiguous per-row view (position order), in
+    the pool's dtype (an fp8 pool's pages gathered as bits)."""
     b, npages = page_tables.shape
     blk, hkv, d = pool.shape[1:]
-    return pool[page_tables.long()].reshape(b, npages * blk, hkv, d)
+    return bits(pool)[page_tables.long()].view(pool.dtype).reshape(
+        b, npages * blk, hkv, d)
 
 
 def paged_attention_ref(q, k_pool, v_pool, lens, page_tables, *, scale=None,

@@ -30,7 +30,7 @@ import math
 import torch
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
-from repro_torch.device import runs_kernels
+from repro_torch.device import bits, cast_to, runs_kernels
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.paged_attention import ops as pa
 from repro_torch.models.layers import _init, apply_rope, attention, \
@@ -74,7 +74,9 @@ def _write_pages(k_pool, v_pool, bids, offs, k, v):
     MoE's idle rows read that content: their tokens are routed and take
     expert capacity from their batchmates. So every write to a slot carries
     the value of the last one (the largest index aiming at it), and any
-    order gives the reference's content."""
+    order gives the reference's content. The values are cast to the
+    pools' dtype by the reference's rule (``device.cast_to``: an fp8
+    overflow is NaN) and written as bits."""
     blk = k_pool.shape[1]
     flat = (bids.long() * blk + offs.long()).reshape(-1)
     n = flat.numel()
@@ -84,8 +86,9 @@ def _write_pages(k_pool, v_pool, bids, offs, k, v):
     src = last[flat]
     k = k.reshape(n, *k.shape[-2:])[src].reshape(k.shape)
     v = v.reshape(n, *v.shape[-2:])[src].reshape(v.shape)
-    k_pool.index_put_((bids.long(), offs.long()), k.to(k_pool.dtype))
-    v_pool.index_put_((bids.long(), offs.long()), v.to(v_pool.dtype))
+    for pool, new in ((k_pool, k), (v_pool, v)):
+        bits(pool).index_put_((bids.long(), offs.long()),
+                              bits(cast_to(new, pool.dtype)))
 
 
 def gqa_full(params, x, cfg: ModelConfig, *, causal: bool = True,
@@ -128,18 +131,19 @@ def gqa_decode(params, x, cache_k, cache_v, cache_len, cfg: ModelConfig):
     pos = (cache_len.reshape(b, 1) if per_slot
            else torch.as_tensor(cache_len, device=x.device).reshape(1))
     q, k, v = _qkv(params, x, pos, cfg)
+    # written as bits, cast by the reference's rule (``device.cast_to``)
+    news = [(bits(cache), bits(cast_to(new[:, 0], cache.dtype)))
+            for cache, new in ((cache_k, k), (cache_v, v))]
     if per_slot:
         rows = torch.arange(b, device=x.device)
         idx = torch.clamp(cache_len.long(), max=S - 1)
         keep = (cache_len < S)[:, None, None]
-        cache_k[rows, idx] = torch.where(keep, k[:, 0].to(cache_k.dtype),
-                                         cache_k[rows, idx])
-        cache_v[rows, idx] = torch.where(keep, v[:, 0].to(cache_v.dtype),
-                                         cache_v[rows, idx])
+        for cache, new in news:
+            cache[rows, idx] = torch.where(keep, new, cache[rows, idx])
         kv_len = (cache_len + 1).to(torch.int32)
     else:
-        cache_k[:, cache_len] = k[:, 0].to(cache_k.dtype)
-        cache_v[:, cache_len] = v[:, 0].to(cache_v.dtype)
+        for cache, new in news:
+            cache[:, cache_len] = new
         kv_len = int(cache_len) + 1
     o = da.decode_attention(q.contiguous(), cache_k, cache_v, kv_len,
                             pairing=_pairing(cfg))

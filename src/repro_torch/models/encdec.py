@@ -30,11 +30,13 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device, seeded_generator, torch_dtype
+from repro_torch.device import (FP8, resolve_device, seeded_generator,
+                                torch_dtype)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (_init, apply_mlp, cross_entropy_loss,
                                        init_mlp, rms_norm)
-from repro_torch.models.transformer import _unembed, remat_wrap
+from repro_torch.models.transformer import (_unembed, refuse_fp8,
+                                            remat_wrap)
 from repro_torch.weights import forward_params, prepare_params
 
 MAX_DEC_POS = 32768
@@ -164,6 +166,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     ``cross_v`` (L, batch, enc_len, hkv, hd)."""
     _check_supported(cfg)
     ct = torch_dtype(cfg.kv_cache_dtype or cfg.compute_dtype)
+    if ct == FP8:
+        raise ValueError(refuse_fp8(cfg, "the encoder-decoder's caches"))
     dev = resolve_device(device)
     h, hd, L = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers
     return {name: torch.zeros((L, batch, S, h, hd), dtype=ct, device=dev)

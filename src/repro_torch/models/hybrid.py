@@ -26,14 +26,15 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device, seeded_generator, torch_dtype
+from repro_torch.device import (FP8, resolve_device, seeded_generator,
+                                torch_dtype)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.layers import (_init, apply_mlp, cross_entropy_loss,
                                        init_mlp, rms_norm)
 from repro_torch.models.transformer import (_embed, _mamba_decode,
                                             _mamba_full, _unembed,
-                                            remat_wrap)
+                                            refuse_fp8, remat_wrap)
 from repro_torch.weights import forward_params, prepare_params
 
 
@@ -136,6 +137,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     _check_supported(cfg)
     dev = resolve_device(device)
     ct = torch_dtype(cfg.kv_cache_dtype or cfg.compute_dtype)
+    if ct == FP8:
+        raise ValueError(refuse_fp8(cfg, "the hybrid's rings and conv "
+                                    "state"))
     g, e, tail = _layout(cfg)
     m, _, h, conv_dim = ssd_mod._dims(cfg)
     hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim

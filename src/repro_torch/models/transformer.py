@@ -52,7 +52,8 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device, seeded_generator, torch_dtype
+from repro_torch.device import (FP8, bits, cast_to, resolve_device,
+                                seeded_generator, torch_dtype)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssd as ssd_mod
@@ -94,6 +95,17 @@ def check_gqa_family(cfg: ModelConfig):
             "under per-slot lengths; serve it through prefill and "
             "decode_step at a scalar cache_len")
     _check_supported(cfg)
+
+
+def refuse_fp8(cfg: ModelConfig, what: str) -> str:
+    """The message of the ``ValueError`` that refuses an fp8 KV cache where
+    the reference fails on one: its first decode step mixes the fp8 cache
+    with compute-dtype values and raises ``TypePromotionError``."""
+    return (f"{cfg.name}: kv_cache_dtype={cfg.kv_cache_dtype!r} is not "
+            f"served for {what}: the reference stores it in that dtype and "
+            "its first decode step fails (TypePromotionError, the cache "
+            f"against {cfg.compute_dtype}); use kv_cache_dtype='' (the "
+            "compute dtype)")
 
 
 def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator]
@@ -294,6 +306,10 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     (L, batch, g, h/g, n, p) float32."""
     _check_supported(cfg)
     ct = torch_dtype(cfg.kv_cache_dtype or cfg.compute_dtype)
+    if ct == FP8 and (cfg.family == "ssm" or cfg.mla is not None):
+        raise ValueError(refuse_fp8(cfg, "an MLA's latent cache"
+                                    if cfg.mla is not None
+                                    else "the SSM's conv state"))
     dev = resolve_device(device)
 
     def zeros(*shape, dtype=ct):
@@ -321,8 +337,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 
 def _fill(cache, new):
     """Write prefill entries (b, s, ...) into positions 0.. of one layer's
-    cache, in place."""
-    cache[:, :new.shape[1]] = new.to(cache.dtype)
+    cache, in place, cast by the reference's rule (``device.cast_to``)."""
+    bits(cache)[:, :new.shape[1]] = bits(cast_to(new, cache.dtype))
 
 
 def _layer_caches(state: Dict, cfg: ModelConfig, li: int):

@@ -8,8 +8,9 @@ cache (iteration-level scheduling, Orca-style). Lanes in the middleware map
 a decode step the decode kernel (K4) in every layer; the cache is one
 contiguous (L, max_slots, max_len, hkv, hd) tensor per K and V, updated in
 place. ``extract_slot`` / ``restore_slot`` move one slot's cache as numpy
-arrays in the reference's layout (bf16 as uint16 bits), which is what
-backs CLM hibernation at engine level.
+arrays in the reference's layout (bf16 as uint16 bits, an fp8 cache's
+float8_e4m3fn as uint8 bits), which is what backs CLM hibernation at
+engine level.
 
 Compiled dispatch (``cuda_graphs``, the counterpart of the reference's
 ``jax.jit`` of ``decode_step`` and of its prefill): on the card the decode
@@ -31,11 +32,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import bits, resolve_device
 from repro_torch.models import build
 from repro_torch.models.transformer import check_gqa_family
 from repro_torch.serving import graphs
-from repro_torch.weights import numpy_to_torch, torch_to_numpy
+from repro_torch.weights import host_as, torch_to_numpy
 
 
 @dataclasses.dataclass
@@ -158,7 +159,9 @@ class InferenceEngine:
         pre = self.model.init_decode_state(1, plen, device=self.device)
         logits = self.model.prefill(self.params, toks, state=pre)
         for name, c in self.state.items():
-            c[:, :, :plen].index_copy_(1, slot.long(), pre[name])
+            # as bits: index_copy_ has no float8 kernel
+            bits(c)[:, :, :plen].index_copy_(1, slot.long(),
+                                             bits(pre[name]))
         return logits
 
     def _decode(self):
@@ -204,6 +207,9 @@ class InferenceEngine:
                 int(self.lens[slot]))
 
     def restore_slot(self, slot: int, payload, length: int):
+        """Write a payload of ``extract_slot``'s layout into ``slot``, read
+        by the cache's dtype (``weights.host_as``: bits as bits)."""
         for name, c in self.state.items():
-            c[:, slot] = numpy_to_torch(payload[name]).to(c.device, c.dtype)
+            bits(c)[:, slot] = bits(host_as(payload[name],
+                                            c.dtype)).to(c.device)
         self.lens[slot] = length

@@ -15,10 +15,13 @@ kv-head order), so hibernation, the journal, the disk tier and migration
 do not see the mesh's shape.
 
 The pools are device tensors updated in place (``index_put_``) where the
-reference donates and replaces its buffers. Host pages keep the reference's
-``(L, pages, blk, hkv, hd)`` layout; a bf16 pool's pages travel as their raw
-bits in ``np.uint16`` (``weights.numpy_to_torch`` reads both those and
-ml_dtypes ``bfloat16`` arrays back).
+reference donates and replaces its buffers; a float8_e4m3fn pool (an fp8
+KV cache) moves its pages as uint8 bits. Host pages keep the reference's
+``(L, pages, blk, hkv, hd)`` layout; a bf16 pool's pages travel as their
+raw bits in ``np.uint16``, an fp8 pool's in ``np.uint8``. Written pages
+are read by the pool's own dtype (``weights.host_as``): bit patterns as
+bits, ml_dtypes arrays as theirs, other values cast as the reference
+casts.
 
 A prompt-prefix index dedups full, block-aligned prompt prefixes across
 sessions: a new session whose prompt starts with an indexed prefix adopts
@@ -36,7 +39,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tr
 from repro_torch.serving.paging.allocator import (NULL_BLOCK, BlockAllocator,
                                                   PageTable)
-from repro_torch.weights import numpy_to_torch, torch_to_numpy
+from repro_torch.device import bits
+from repro_torch.weights import host_as, torch_to_numpy
 
 
 def _pow2_pad(n: int) -> int:
@@ -112,8 +116,10 @@ class PagedKVCache:
         shards' slices in kv-head order on the first shard's device."""
         if len(self.shards) == 1:
             return self.shards[0]["k"], self.shards[0]["v"]
-        return tuple(torch.cat([s[n].to(self.device) for s in self.shards],
-                               dim=3) for n in ("k", "v"))
+        dtype = self.shards[0]["k"].dtype
+        return tuple(torch.cat([bits(s[n]).to(self.device)
+                                for s in self.shards], dim=3).view(dtype)
+                     for n in ("k", "v"))
 
     # ------------------------------------------------------------- sizes
     def pages_for(self, n_tokens: int) -> int:
@@ -232,7 +238,7 @@ class PagedKVCache:
         new = self.allocator.alloc()
         for shard in self.shards:
             for pool in shard.values():
-                pool[:, new] = pool[:, bid]
+                bits(pool)[:, new] = bits(pool)[:, bid]
         self._release_block(bid)
         pt.blocks[page_idx] = new
 
@@ -246,17 +252,16 @@ class PagedKVCache:
         row = np.full((width,), NULL_BLOCK, np.int64)
         row[:pages] = bids
         for name, host in (("k", k_pages), ("v", v_pages)):
-            full = host if torch.is_tensor(host) else numpy_to_torch(host)
+            full = bits(host_as(host, self.shards[0][name].dtype))
             if width != pages:
                 pad = full.new_zeros((full.shape[0], width - pages,
                                       *full.shape[2:]))
                 full = torch.cat([full, pad], dim=1)
             for i, shard in enumerate(self.shards):
-                pool = shard[name]
+                pool = bits(shard[name])
                 hl = pool.shape[3]
                 pool[:, torch.from_numpy(row).to(pool.device)] = \
-                    full[:, :, :, i * hl:(i + 1) * hl].to(
-                        device=pool.device, dtype=pool.dtype)
+                    full[:, :, :, i * hl:(i + 1) * hl].to(pool.device)
 
     def write_prefill(self, pt: PageTable, k_pre, v_pre):
         """Scatter prefill KV (L, plen, hkv, hd), full-hkv host arrays or
@@ -269,7 +274,7 @@ class PagedKVCache:
         bids = np.asarray(pt.blocks[:pages], np.int64)
 
         def paged(pre):
-            pre = pre if torch.is_tensor(pre) else numpy_to_torch(pre)
+            pre = bits(host_as(pre, self.shards[0]["k"].dtype))
             if pad:
                 pre = torch.cat([pre, pre.new_zeros((L, pad,
                                                      *pre.shape[2:]))], dim=1)
@@ -290,12 +295,13 @@ class PagedKVCache:
         a live session are content-frozen, so they can stream while it
         decodes)."""
         def pages(name):
-            parts = [s[name][:, torch.as_tensor(pt.blocks[lo:hi],
-                                                dtype=torch.long,
-                                                device=s[name].device)]
+            parts = [bits(s[name])[:, torch.as_tensor(pt.blocks[lo:hi],
+                                                      dtype=torch.long,
+                                                      device=s[name].device)]
                      for s in self.shards]
-            return torch_to_numpy(parts[0] if len(parts) == 1 else
-                                  torch.cat([p.cpu() for p in parts], dim=3))
+            joined = parts[0] if len(parts) == 1 else torch.cat(
+                [p.cpu() for p in parts], dim=3)
+            return torch_to_numpy(joined.view(self.shards[0][name].dtype))
         return pages("k"), pages("v")
 
     def scatter(self, k_pages: np.ndarray, v_pages: np.ndarray,

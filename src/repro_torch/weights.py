@@ -17,8 +17,9 @@ layer params are stacked on leading axes; the port keeps lists of
 per-layer dicts. Floats are cast to ``cfg.compute_dtype`` ONCE,
 here, which is what the reference's per-call ``cast_floats`` computes every
 step. A numpy leaf whose dtype is named ``bfloat16`` (ml_dtypes) crosses as
-its raw bits (``uint16`` -> ``torch.int16`` view -> bf16), so no ml_dtypes
-import is needed.
+its raw bits (``uint16`` -> ``torch.int16`` view -> bf16), and one named
+``float8_e4m3fn`` (an fp8 KV cache's pages) as ``uint8`` bits, so no
+ml_dtypes import is needed.
 """
 from __future__ import annotations
 
@@ -28,40 +29,67 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.device import FP8, cast_to, resolve_device, torch_dtype
 
 
 def numpy_to_torch(arr) -> torch.Tensor:
     """A host numpy array as a CPU tensor. ``bfloat16`` arrays (from
     ml_dtypes) and ``uint16`` arrays are taken as bf16 bit patterns — the
-    layout the port's own bf16 pool pages use on the host."""
+    layout the port's own bf16 pool pages use on the host — and ml_dtypes
+    ``float8_e4m3fn`` arrays as fp8 bit patterns. A bare ``uint8`` array
+    stays ``uint8``: it may hold fp8 bits or bytes, which only its reader
+    knows (``host_as``)."""
     arr = np.asarray(arr)         # a 0-d array stays 0-d; copies are C order
     if arr.dtype.name in ("bfloat16", "uint16"):
         bits = arr.view(np.uint16).view(np.int16)
         return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    if arr.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(arr.view(np.uint8).copy()).view(FP8)
     return torch.from_numpy(arr.copy())
+
+
+def host_as(arr, dtype: torch.dtype) -> torch.Tensor:
+    """A host array (or a tensor) bound for a tensor of ``dtype``, as a
+    tensor of it on the same device: ``uint8`` bits viewed as float8 where
+    ``dtype`` is float8_e4m3fn, bit patterns as ``numpy_to_torch`` reads
+    them, any other values cast as the reference's ``asarray(x, dtype)``
+    casts (``device.cast_to``). The pool and the dense engine read host
+    pages by their own dtype this way, so fp8 bits are never converted as
+    numbers."""
+    t = arr if torch.is_tensor(arr) else numpy_to_torch(arr)
+    if dtype == FP8 and t.dtype == torch.uint8:
+        return t.view(FP8)
+    return cast_to(t, dtype)
 
 
 def torch_to_numpy(t: torch.Tensor) -> np.ndarray:
     """Inverse of ``numpy_to_torch``: a bf16 tensor returns its raw bits as
-    ``np.uint16``; other dtypes convert as numpy does."""
+    ``np.uint16``, a float8_e4m3fn one as ``np.uint8``; other dtypes
+    convert as numpy does."""
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
+    if t.dtype == FP8:
+        return t.view(torch.uint8).numpy()
     return t.numpy()
 
 
-def slot_payload_as(payload: Dict, bf16) -> Dict:
+def slot_payload_as(payload: Dict, bf16, f8=None) -> Dict:
     """An ``extract_slot`` payload ({"k", "v"} numpy arrays) with every
-    16-bit float leaf viewed as ``bf16``, bit for bit. ``np.uint16`` carries
-    a JAX ``InferenceEngine`` payload (ml_dtypes bfloat16) into the port's
-    layout; the caller's ml_dtypes ``bfloat16`` carries a port payload to
-    the JAX engine's ``restore_slot``. Float32 leaves pass unchanged."""
+    16-bit float leaf viewed as ``bf16`` and, where ``f8`` is given, every
+    8-bit leaf as ``f8``, bit for bit. ``np.uint16`` / ``np.uint8`` carry a
+    JAX ``InferenceEngine`` payload (ml_dtypes bfloat16 / float8_e4m3fn)
+    into the port's layout; the caller's ml_dtypes types carry a port
+    payload to the JAX engine's ``restore_slot``. Float32 leaves pass
+    unchanged."""
     out = {}
     for name, arr in payload.items():
         arr = np.asarray(arr)
         if arr.dtype.name in ("bfloat16", "uint16"):
             arr = arr.view(bf16)
+        elif f8 is not None and arr.dtype.name in ("float8_e4m3fn",
+                                                   "uint8"):
+            arr = arr.view(f8)
         out[name] = arr
     return out
 

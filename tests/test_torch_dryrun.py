@@ -9,6 +9,8 @@ reference's, and the kernel wrappers' ``meta`` route it runs on.
     ``tests/test_sharding.py``'s, and one in process with the reference's
     keys, each null field with its reason;
   * the sizing on a 1 x 1 mesh equals the bytes the tensors hold;
+  * experiment C1's override (``kv_cache_dtype=float8_e4m3fn``) sizes the
+    decode state at one byte per cache element, as the reference's;
   * each wrapper's ``meta`` output has its plain version's shapes and
     dtypes on the CPU, and adds the kernel's work to an open count; on
     ``meta`` it allocates the workspace its launch would;
@@ -25,8 +27,10 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from jax.tree_util import tree_leaves as jax_leaves
 
 from repro.configs import get_config as ref_config
+from repro.models import abstract_decode_state as ref_abstract_state
 from repro.models import abstract_params as ref_abstract_params
 from repro_torch.configs import (ARCH_IDS, SHAPES, get_config,
                                  get_smoke_config)
@@ -38,7 +42,7 @@ from repro_torch.kernels.paged_attention import ops as pa
 from repro_torch.kernels.ssd import ops as ssd
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_local_mesh
-from repro_torch.models import build
+from repro_torch.models import abstract_decode_state, build
 from repro_torch.tree import leaves
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -130,6 +134,33 @@ def test_decode_kernel_work_splits_as_the_decode_state():
     assert cell["hlo_flops_per_device"] == pytest.approx(
         cell["aten_flops"] * split["fraction"]
         + cell["kernel_flops"]["K4"] / 256, rel=1e-12)
+
+
+def test_fp8_kv_cache_override_halves_the_decode_state():
+    """Experiment C1, deepseek-67b decode_32k under ``--override
+    kv_cache_dtype=float8_e4m3fn``, on meta: the decode step runs (K4 on
+    the fp8 cache in each of the 95 layers), and the decode state's bytes,
+    per device under the rules and in all, are half the bf16 ones and the
+    reference's ``abstract_decode_state`` bytes under the override."""
+    over = {"kv_cache_dtype": "float8_e4m3fn"}
+    fp8 = dryrun.run_cell("deepseek-67b", "decode_32k", False, over)
+    bf16 = dryrun.run_cell("deepseek-67b", "decode_32k", False)
+    assert fp8["ok"] and fp8["kernel_calls"] == {"K4": 95}
+    assert 2 * fp8["argument_groups"]["decode_state"] == \
+        bf16["argument_groups"]["decode_state"]
+    shape = dryrun.SHAPES_BY_NAME["decode_32k"]
+    b, s = shape.global_batch, shape.seq_len
+
+    def held(cfg):
+        return sum(t.numel() * t.element_size()
+                   for t in leaves(abstract_decode_state(cfg, b, s)))
+
+    ref = jax_leaves(ref_abstract_state(
+        ref_config("deepseek-67b").replace(**over), b, s))
+    cfg = get_config("deepseek-67b")
+    assert 2 * held(cfg.replace(**over)) == held(cfg)
+    assert held(cfg.replace(**over)) == sum(
+        int(np.prod(x.shape)) * x.dtype.itemsize for x in ref)
 
 
 def test_sizing_on_one_device_is_the_bytes_held():

@@ -939,3 +939,166 @@ def test_captured_train_step_equals_eager_on_the_card(cuda, arch,
         assert torch.equal(x, y)
     st = step.graph_stats()
     assert st["first_calls"] == 1 and st["replays"] == 2
+
+
+# ------------------------------------------------------ the fp8 KV cache
+
+FP8 = torch.float8_e4m3fn
+
+
+def _fp8(*xs):
+    """Tensors cast to e4m3 as the cache writes cast them."""
+    from repro_torch.device import cast_to
+    return [cast_to(x, FP8) for x in xs]
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.uint8) if a.dtype == FP8 else a,
+                       b.view(torch.uint8) if b.dtype == FP8 else b)
+
+
+# K1's routes on e4m3 pools: the walk (f32, C > 1), the split decode
+# (C = 1) and the tensor-core tiles (bf16, C > 1; gemma-2b's exact build at
+# d = 256, the others' at d 32 / 64 / 128)
+FP8_K1 = [(s, C, dt) for s, C in CASES for dt in (torch.float32,
+                                                  torch.bfloat16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pairing", ["kv_major", "g_major"])
+@pytest.mark.parametrize("shape,C,dtype", FP8_K1 + [
+    (("gemma", b, C, npages), C, torch.bfloat16)
+    for b, C, npages in GEMMA_PAGED] + [
+    (("odd", hq, hkv), C, torch.bfloat16) for hq, hkv in ODD_GROUPS[:2]
+    for C in (1, 32)])
+def test_fp8_k1_equals_the_upcast_pools(cuda, shape, C, dtype, pairing):
+    """Each route on e4m3 pools gives the bits of the same kernel on the
+    pools upcast to q's dtype (the plan, the units and every product are
+    that call's), and lies within the bf16 / f32 tolerance of the plain
+    version; one launch counted per call."""
+    if shape[0] == "gemma":
+        x = mixed_case(shape[1], C, 8, 1, 256, 256, 16, shape[3],
+                       seed=shape[1] + C)
+    elif shape[0] == "odd":
+        x = mixed_case(4, C, shape[1], shape[2], 128, 128, 16, 8,
+                       seed=shape[1] + C)
+    else:
+        x = case(shape, C)
+    q, k, v, lens, vals, pt = (torch.from_numpy(a).to(cuda) for a in x)
+    q = q.to(dtype)
+    k8, v8 = _fp8(k, v)
+    before = ops.paged_prefill_attention.launches
+    got = ops.paged_prefill_attention(q, k8, v8, lens, vals, pt,
+                                      pairing=pairing)
+    up = ops.paged_prefill_attention(q, k8.to(dtype), v8.to(dtype), lens,
+                                     vals, pt, pairing=pairing)
+    want = ref.paged_prefill_attention_ref(q, k8, v8, lens, vals, pt,
+                                           pairing=pairing)
+    torch.cuda.synchronize()
+    assert ops.paged_prefill_attention.launches == before + 2
+    assert ops.kernel_plan(q, k8, v8, pt) == ops.kernel_plan(
+        q, k8.to(dtype), v8.to(dtype), pt)
+    assert torch.equal(got, up)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("blk", [8, 16])
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_fp8_k2_equals_the_upcast_pools(cuda, shape, blk, dtype):
+    q, k, v, lens, pt = (torch.from_numpy(x).to(cuda)
+                         for x in decode_case(*shape[:5], blk, shape[5],
+                                              seed=blk))
+    q = q[:, None].to(dtype)
+    k8, v8 = _fp8(k, v)
+    got = ops.paged_attention(q, k8, v8, lens, pt, pairing="g_major")
+    up = ops.paged_attention(q, k8.to(dtype), v8.to(dtype), lens, pt,
+                             pairing="g_major")
+    want = ref.paged_attention_ref(q[:, 0], k8, v8, lens, pt,
+                                   pairing="g_major")
+    torch.cuda.synchronize()
+    assert torch.equal(got, up)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got[:, 0].float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scalar", [False, True])
+@pytest.mark.parametrize("shape", DENSE_DECODE_SHAPES)
+def test_fp8_k4_equals_the_upcast_cache(cuda, shape, scalar, dtype):
+    b, S, hq, hkv, d, dv = shape
+    q, k, v = (torch.from_numpy(x).to(cuda)
+               for x in dense_case(b, 1, S, hq, hkv, d, dv, seed=S))
+    q = q.to(dtype)
+    k8, v8 = _fp8(k, v)
+    lens = np.random.default_rng(S).integers(1, S + 1, size=b)
+    lens[0], lens[-1] = 1, S
+    kv_len = S // 2 if scalar else torch.from_numpy(
+        lens.astype(np.int32)).to(cuda)
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, k8, v8, kv_len, pairing="g_major")
+    up = da.decode_attention(q, k8.to(dtype), v8.to(dtype), kv_len,
+                             pairing="g_major")
+    want = da_ref.decode_attention_ref(q[:, 0], k8, v8, kv_len,
+                                       pairing="g_major")
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 2
+    assert torch.equal(got, up)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got[:, 0].float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.gpu
+def test_fp8_kernels_refuse_what_they_do_not_take(cuda):
+    """fp8 q, K and V of two dtypes, and fp8 rows that are not whole
+    16-byte chunks (d = 8) raise; nothing launches, nothing falls back."""
+    q, k, v, lens, vals, pt = (torch.from_numpy(x).to(cuda)
+                               for x in case("gqa", 8))
+    k8, v8 = _fp8(k, v)
+    counts = (ops.paged_prefill_attention.launches,
+              da.decode_attention.launches)
+    with pytest.raises(TypeError):
+        ops.paged_prefill_attention(*_fp8(q), k8, v8, lens, vals, pt)
+    with pytest.raises(TypeError):
+        ops.paged_prefill_attention(q, k8, v, lens, vals, pt)
+    with pytest.raises(ValueError):
+        ops.paged_prefill_attention(
+            q[..., :8].contiguous(), k8[..., :8].contiguous(),
+            v8[..., :8].contiguous(), lens, vals, pt)
+    dq, dk, dv_ = (torch.from_numpy(x).to(cuda)
+                   for x in dense_case(2, 1, 8, 4, 2, 32, 32, seed=0))
+    with pytest.raises(TypeError):
+        da.decode_attention(dq, *_fp8(dk), dv_, 3)
+    assert counts == (ops.paged_prefill_attention.launches,
+                      da.decode_attention.launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fp8_graph_replay_equals_eager_step(cuda, dtype):
+    """The megastep on e4m3 pools replayed from its graphs gives the eager
+    step's tokens and pools bit for bit; the pools hold half the bytes of
+    the compute dtype's."""
+    from repro_torch.serving import PagedInferenceEngine
+    cfg, params = _graph_model(cuda, dtype)
+    cfg = cfg.replace(kv_cache_dtype="float8_e4m3fn")
+    runs = {}
+    for graphs_on in (False, True):
+        eng = PagedInferenceEngine(cfg, params, device=cuda,
+                                   cuda_graphs=graphs_on, **GRAPH_KW)
+        eng.compile_buckets()
+        runs[graphs_on] = eng, _graph_traffic(eng)
+    (eager, want), (graph, got) = runs[False], runs[True]
+    assert got == want
+    for a, b in zip(graph.cache.full_pools(), eager.cache.full_pools()):
+        assert a.dtype == FP8 and _same_bits(a[:, 1:], b[:, 1:])
+    assert graph.cache.block_bytes * (4 if dtype == "float32" else 2) == \
+        PagedInferenceEngine(cfg.replace(kv_cache_dtype=""), params,
+                             device=cuda, cuda_graphs=False,
+                             **GRAPH_KW).cache.block_bytes
+    assert graph.graph_stats()["replays"] > 0
