@@ -3270,22 +3270,30 @@ def _train_summary(run: dict) -> dict:
             "graph": run["graph"]}
 
 
-TRAIN_ROUTES = (False, True, True, False)   # cuda_graphs, in turn
+# (remat_policy, cuda_graphs), in turn: full, dots, dots, full, each on the
+# eager route and on the graph route
+TRAIN_ROUTES = (("full", False), ("full", True), ("dots", False),
+                ("dots", True), ("dots", True), ("dots", False),
+                ("full", True), ("full", False))
+# the final params of "dots" against "full": max |diff| <= this x max |p|
+# (the recomputed products are the kept ones bit for bit, so 0 is expected)
+POLICY_PARAM_TOL = 1e-6
 
 
 def _train_routes(torch, arch: str, seed: int, b: int = 8, s: int = 128,
-                  steps: int = 4) -> dict:
+                  steps: int = 4, routes=TRAIN_ROUTES) -> dict:
     """The train step as the CLI runs it (deterministic algorithms; params
     from ``seed``, the CLI's data stream), ``steps`` steps from fresh
-    params on each route in turn: eager, graphs, graphs, eager
-    (``TRAIN_ROUTES``; the host's speed drifts within a call). Every run's
-    losses, grad norms and final params (kept from the first run, on the
-    card) equal bit for bit; on the graph route one capture, then one
-    replay a step. The first run's final params wait on the host, so
-    every run starts from the same free card. Per run: each step's host
-    ms (ending with its loss on the host), the capture seconds and
-    graph-pool bytes, the peak reserved and allocated memory; then one
-    profiled step on each route."""
+    params for each (remat_policy, route) of ``routes`` in turn
+    (``TRAIN_ROUTES``; the host's speed drifts within a call). Under one
+    policy every run's losses, grad norms and final params (kept from its
+    first run, on the host) equal bit for bit; across policies the losses
+    equal bit for bit and the final params within ``POLICY_PARAM_TOL``
+    (whether bit for bit is reported). On the graph route one capture,
+    then one replay a step. Every run starts from a free card. Per run:
+    each step's host ms (ending with its loss on the host), the capture
+    seconds and graph-pool bytes, the peak reserved and allocated memory;
+    then one profiled step for each (policy, route)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build
     from repro_torch.training import optimizer as opt
@@ -3299,14 +3307,15 @@ def _train_routes(torch, arch: str, seed: int, b: int = 8, s: int = 128,
     kernel = "K5" if cfg.family == "ssm" else "K3"
     was = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
-    runs, want, profiles = [], None, {}
+    runs, want, profiles = [], {}, {}
     try:
-        for i, graphs_on in enumerate(TRAIN_ROUTES):
+        for i, (policy, graphs_on) in enumerate(routes):
             _free()
             torch.cuda.reset_peak_memory_stats()
             params = model.init_train_params(seed=seed, device="cuda")
             state = opt.init(params, ocfg)
-            step = make_train_step(cfg, ocfg, cuda_graphs=graphs_on)
+            step = make_train_step(cfg.replace(remat_policy=policy), ocfg,
+                                   cuda_graphs=graphs_on)
             reset_counts()
             ms, loss, gnorm = [], [], []
             for k in range(steps):
@@ -3318,10 +3327,11 @@ def _train_routes(torch, arch: str, seed: int, b: int = 8, s: int = 128,
                 ms.append((time.perf_counter() - t0) * 1e3)
                 gnorm.append(float(m["grad_norm"]))
             counts = read_counts()
-            _expect(f"train routes {arch}", counts,
+            _expect(f"train routes {arch} {policy}", counts,
                     {kernel: 2 * cfg.n_layers * steps})
-            run = {"cuda_graphs": graphs_on, "step_ms": ms, "loss": loss,
-                   "grad_norm": gnorm, "launches": counts,
+            run = {"remat_policy": policy, "cuda_graphs": graphs_on,
+                   "step_ms": ms, "loss": loss, "grad_norm": gnorm,
+                   "launches": counts,
                    "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
                    "peak_allocated_gb":
                        torch.cuda.max_memory_allocated() / 1e9,
@@ -3331,35 +3341,115 @@ def _train_routes(torch, arch: str, seed: int, b: int = 8, s: int = 128,
                 raise AssertionError(f"train routes {arch}: graphs "
                                      f"{run['graph']}")
             final = leaves(params)
-            if want is None:
-                want = (loss, gnorm, [a.cpu() for a in final])
+            if policy not in want:
+                want[policy] = (loss, gnorm, [a.cpu() for a in final])
             else:
-                same = [a.dtype == w.dtype and torch.equal(a, w.to(a.device))
-                        for a, w in zip(final, want[2])]
-                if (loss, gnorm) != want[:2] or not all(same):
+                w = want[policy]
+                same = [a.dtype == x.dtype and torch.equal(a, x.to(a.device))
+                        for a, x in zip(final, w[2])]
+                if (loss, gnorm) != w[:2] or not all(same):
                     raise AssertionError(
-                        f"train routes {arch}: run {i} (cuda_graphs="
-                        f"{graphs_on}) against run 0: losses {loss} / "
-                        f"{want[0]}, grad norms {gnorm} / {want[1]}, "
-                        f"{same.count(False)} param leaves differ")
-            route = "graphs" if graphs_on else "eager"
-            if route not in profiles and i:
+                        f"train routes {arch}: run {i} ({policy}, "
+                        f"cuda_graphs={graphs_on}) against the first "
+                        f"{policy} run: losses {loss} / {w[0]}, grad norms "
+                        f"{gnorm} / {w[1]}, {same.count(False)} param "
+                        "leaves differ")
+            route = f"{policy}/{'graphs' if graphs_on else 'eager'}"
+            if route not in profiles and (i or len(routes) == 1):
                 profiles[route] = _profile_calls(
                     torch, lambda: step(params, state, batch), n=1)
             runs.append(run)
             del params, state, step, final, m
     finally:
         torch.use_deterministic_algorithms(was)
+    policies = list(want)
+    across = {}
+    for policy in policies[1:]:
+        (l0, g0, p0), (l1, g1, p1) = want[policies[0]], want[policy]
+        if l1 != l0:
+            raise AssertionError(f"train routes {arch}: {policy} losses "
+                                 f"{l1} against {policies[0]}'s {l0}")
+        err = max(((a - x).abs().max() / max(1.0, x.abs().max())).item()
+                  for a, x in zip(p1, p0))
+        if not err <= POLICY_PARAM_TOL:
+            raise AssertionError(f"train routes {arch}: {policy} final "
+                                 f"params off {policies[0]}'s by {err}")
+        across[policy] = {
+            "against": policies[0], "losses_bitwise_equal": True,
+            "grad_norms_bitwise_equal": g1 == g0,
+            "params_max_rel_err": err, "params_tol": POLICY_PARAM_TOL,
+            "params_bitwise_equal": all(torch.equal(a, x)
+                                        for a, x in zip(p1, p0))}
     del want
     _free()
-    median = {r: statistics.median(ms for run in runs
-                                   if run["cuda_graphs"] == (r == "graphs")
-                                   for ms in run["step_ms"][1:])
-              for r in ("eager", "graphs")}
+    median, memory = {}, {}
+    for policy in policies:
+        mine = [r for r in runs if r["remat_policy"] == policy]
+        median[policy] = {
+            route: statistics.median(ms for r in mine
+                                     if r["cuda_graphs"] == (route
+                                                             == "graphs")
+                                     for ms in r["step_ms"][1:])
+            for route in ("eager", "graphs")
+            if any(r["cuda_graphs"] == (route == "graphs") for r in mine)}
+        memory[policy] = {
+            k: max(r[k] for r in mine)
+            for k in ("peak_allocated_gb", "peak_reserved_gb")}
+        memory[policy]["graph_pool_bytes"] = max(
+            (sum(v for v in r["graph"]["pool_growth_bytes"].values()
+                 if v is not None) for r in mine if r["cuda_graphs"]),
+            default=None)
     return {"arch": arch, "b": b, "s": s, "steps": steps,
-            "order": ["graphs" if g else "eager" for g in TRAIN_ROUTES],
-            "bitwise_equal": True, "runs": runs,
-            "median_step_ms_after_first": median, "profile": profiles}
+            "order": [f"{p}/{'graphs' if g else 'eager'}"
+                      for p, g in routes],
+            "bitwise_equal_within_policy": True, "across_policies": across,
+            "runs": runs, "median_step_ms_after_first": median,
+            "memory": memory, "profile": profiles}
+
+
+def _backward_products(torch, arch: str, seed: int, b: int = 8,
+                       s: int = 128) -> dict:
+    """At full width and depth, one ``value_and_grad`` of the loss with
+    remat off, "full" and "dots": the plain products (``aten.mm`` /
+    ``aten.addmm``) its backward runs, counted by a dispatch mode around
+    the backward alone. "dots" must run as many as remat off (no product
+    twice), "full" more; the losses bit for bit equal."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.tree import flatten, unflatten
+    products = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func in products
+            return func(*args, **(kwargs or {}))
+
+    cfg = get_config(arch)
+    params = build(cfg).init_train_params(seed=seed, device="cuda")
+    batch = SyntheticLM(cfg, b, s, seed=seed, device="cuda").batch_at(0)
+    out = {}
+    for name, c in (("off", cfg.replace(remat=False)), ("full", cfg),
+                    ("dots", cfg.replace(remat_policy="dots"))):
+        flat, spec = flatten(params)
+        live = [x.detach().requires_grad_() for x in flat]
+        loss, _ = build(c).loss(unflatten(spec, live), batch)
+        with Count() as count:
+            torch.autograd.grad(loss, live, allow_unused=True)
+        torch.cuda.synchronize()
+        out[name] = {"backward_products": count.n, "loss": loss.item()}
+        del loss, live
+    del params
+    _free()
+    n = {k: v["backward_products"] for k, v in out.items()}
+    if not n["dots"] == n["off"] < n["full"] \
+            or len({v["loss"] for v in out.values()}) != 1:
+        raise AssertionError(f"train products {arch}: {out}")
+    return {"arch": arch, "b": b, "s": s, **out}
 
 
 def _train_breakdown(torch, arch: str, seed: int, b: int = 8,
@@ -3479,14 +3569,20 @@ def train_phase(torch, seed: int) -> dict:
     batch 8 x 128, no checkpoint (one would be ~30 GB); every loss and
     grad norm finite, step 0's ce under log(V) + 2, K3 launched 2 x 18 x
     4 times (forward and remat recompute). Then the same 4 steps driven
-    directly on each route in turn (``_train_routes``: eager, graphs,
-    graphs, eager), equal bit for bit and to the CLI's losses, and an
+    directly under remat_policy "full" and "dots" in turn, each on the
+    eager and the graph route (``_train_routes``, ``TRAIN_ROUTES``): equal
+    bit for bit within a policy and to the CLI's losses, the losses of
+    "dots" those of "full" bit for bit, K3 2 x 18 a step under both;
+    then the backward's plain products under remat off, "full" and
+    "dots" (``_backward_products``: "dots" runs as many as off), and an
     eager step's breakdown. mamba2-370m at full width and depth (48
     layers), on the graph route: 6 steps straight, then ``--fail-at 2
     --save-every 3`` (exit 42) and ``--resume`` to 6 (captured anew over
     the restored trees): the final checkpoints equal bit for bit, K5
-    launched 2 x 48 a step. Then at full width, depth 2, the gradients
-    reach what sits before each kernel."""
+    launched 2 x 48 a step; then 4 steps under "dots" on the graph route,
+    K5 2 x 48 a step, the losses the straight run's bit for bit. Then at
+    full width, depth 2, the gradients reach what sits before each
+    kernel."""
     import shutil
     from repro_torch.configs import get_config
 
@@ -3519,6 +3615,9 @@ def train_phase(torch, seed: int) -> dict:
                              f"{routes['runs'][0]['loss']}")
     emit({"phase": "train_routes", **routes})
     out["gemma-2b"]["routes"] = routes
+    out["gemma-2b"]["products"] = _backward_products(torch, "gemma-2b",
+                                                     seed)
+    emit({"phase": "train_products", **out["gemma-2b"]["products"]})
     out["gemma-2b"]["breakdown"] = _train_breakdown(torch, "gemma-2b", seed)
     emit({"phase": "train_breakdown", **out["gemma-2b"]["breakdown"]})
     _free()
@@ -3562,9 +3661,22 @@ def train_phase(torch, seed: int) -> dict:
                              "checkpoint differs from the straight run's")
     del a, b
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    # the same steps under "dots" on the graph route: K5 2 x 48 a step,
+    # the losses the straight run's bit for bit
+    dots = _train_routes(torch, "mamba2-370m", seed, steps=4,
+                         routes=(("dots", True),))
+    straight = runs["straight"]["loss"][:4]
+    if dots["runs"][0]["loss"] != straight:
+        raise AssertionError(f"train mamba2-370m: dots losses "
+                             f"{dots['runs'][0]['loss']} against the "
+                             f"straight run's {straight}")
+    emit({"phase": "train_routes", **dots})
     out["mamba2-370m"] = {"n_layers": cfg.n_layers, "remat": cfg.remat,
                           "runs": runs, "resume_bitwise_equal": True,
-                          "checkpoint_bytes": ckpt_bytes}
+                          "checkpoint_bytes": ckpt_bytes,
+                          "dots": {"losses_bitwise_equal_full": True,
+                                   **dots}}
+    _free()
     out["grads_reach"] = [
         _grads_reach(torch, "gemma-2b", (("attn", "wq"), ("attn", "wk"),
                                          ("attn", "wv")), seed),

@@ -11,7 +11,10 @@ dtypes, no storage, no launch) or on the card, and counts:
     torch ops), plus the work each kernel wrapper adds to
     ``kernels.work.count_work`` (FlopCounterMode cannot see a ctypes
     launch). Eager torch unrolls the layer loop, so no trip-count scaling
-    is needed;
+    is needed. Under ``remat_policy="dots"`` a checkpoint's recompute
+    runs under its own dispatch mode, above these counters, which returns
+    each kept product without running it: a kept product counts once, in
+    the forward;
   * ``bytes_materialized``: the bytes of every tensor an aten operation
     of the step creates (views and in-place results, which alias an input,
     are not counted), the kernels' workspaces included: on ``meta`` each

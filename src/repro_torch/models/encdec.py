@@ -21,7 +21,9 @@ replaced by the f32 ``unembed``). Caches are updated in place. ``loss``
 takes the master tree (``Model.init_train_params``: float32, both stacks
 stacked) and a batch with ``frame_embeds``, and returns (ce, {"ce",
 "moe_aux", "moe_z"}), the last two zero; with ``cfg.remat`` each encoder
-and decoder layer runs under ``torch.utils.checkpoint``.
+and decoder layer runs under ``torch.utils.checkpoint`` and
+``cfg.remat_policy`` (``transformer.remat_wrap``), where the reference
+remats them (the decoder layer computes its cross K/V inside, as there).
 """
 from __future__ import annotations
 

@@ -15,9 +15,11 @@ through ``decode_step`` from position 0. Params are the prepared dict of
 dicts, ``tail`` a list, ``shared`` one dict. Decode state is updated in
 place. ``loss`` takes the master tree (``Model.init_train_params``: float32,
 ``groups`` stacked (G, E, ...), ``tail`` (T, ...)) and returns (ce,
-{"ce", "moe_aux", "moe_z"}), the last two zero, as the reference's; with
-``cfg.remat`` each shared-block application and each Mamba-2 layer runs
-under ``torch.utils.checkpoint``.
+{"ce", "moe_aux", "moe_z"}), the last two zero, as the reference's. With
+``cfg.remat`` the checkpoints sit where the reference's sit: each group
+(the shared block, then the group's Mamba-2 layers) is one checkpoint,
+each Mamba-2 layer inside it is checkpointed again, and so is each tail
+layer, all under ``cfg.remat_policy`` (``transformer.remat_wrap``).
 """
 from __future__ import annotations
 
@@ -105,13 +107,17 @@ def forward(params, tokens, cfg: ModelConfig):
     # full attention within the sequence: the window binds only beyond it
     win = 0 if x.shape[1] <= (cfg.attn_window or 1 << 62) \
         else cfg.attn_window
-    shared = remat_wrap(lambda sp, h: _shared_block_full(sp, h, cfg,
-                                                         window=win), cfg)
     mamba = remat_wrap(lambda lp, h: _mamba_full(lp, h, cfg)[0], cfg)
-    for gp in params["groups"]:
-        x = shared(params["shared"], x)
+
+    def group(gp, h):
+        h = _shared_block_full(params["shared"], h, cfg, window=win)
         for lp in gp:
-            x = mamba(lp, x)
+            h = mamba(lp, h)
+        return h
+
+    group = remat_wrap(group, cfg)
+    for gp in params["groups"]:
+        x = group(gp, x)
     for lp in params.get("tail", []):
         x = mamba(lp, x)
     return _unembed(params, rms_norm(x, params["final_norm"], cfg.norm_eps))

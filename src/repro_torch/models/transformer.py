@@ -38,18 +38,25 @@ float32, the reference's stacked layout), prepares it differentiably
 (``weights.forward_params``) and returns ``(total, {"ce", "moe_aux",
 "moe_z"})``: cross-entropy over the text positions plus the MoE aux and z
 losses summed over the layers, at the reference's weights 0.01 and 1e-3.
-With ``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` (its
-activations are recomputed in the backward, as the reference's
-``remat_wrap``; the "dots" policy recomputes the whole layer too).
+With ``cfg.remat`` each scanned layer runs under ``torch.utils.checkpoint``,
+as the reference's ``remat_wrap`` places it (an MoE stack's ``dense0``
+runs outside it, as there). ``cfg.remat_policy`` "full" recomputes the
+whole layer in the backward; any other value is "dots", the reference's
+``dots_with_no_batch_dims_saveable``: the outputs of the layer's plain
+matrix products that its backward reads are kept from the forward, and
+everything else (the batched products, the norms, the kernels) is
+recomputed.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import weakref
 from typing import Dict, Optional, Sequence
 
 import torch
 import torch.utils.checkpoint
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import (FP8, bits, cast_to, resolve_device,
@@ -213,14 +220,133 @@ def _mlp(lp, x, cfg: ModelConfig):
     return _mlp_aux(lp, x, cfg)[0]
 
 
+aten = torch.ops.aten
+# The products "dots" keeps: the plain matrix products, which ``x @ w`` and
+# ``F.linear`` dispatch to. A batched product (``aten.bmm``: the einsums of
+# the plain attention, the SSD scan and the MoE dispatch and experts) has
+# batch dims and is recomputed, as under the reference's policy; so is
+# every kernel launch, which the dispatcher never sees.
+DOTS = frozenset({aten.mm.default, aten.addmm.default})
+# ops whose backward reads no tensor (views aside, which read none either;
+# ``_unsafe_view``, the view ``x @ w`` ends in, is not marked as one)
+_SAVES_NOTHING = frozenset({aten.add.Tensor, aten.sub.Tensor,
+                            aten.neg.default, aten.cat.default,
+                            aten.clone.default, aten._to_copy.default,
+                            aten.detach.default, aten._unsafe_view.default})
+
+
+@functools.cache
+def _saves_nothing(func) -> bool:
+    return func in _SAVES_NOTHING or any(
+        r.alias_info is not None for r in func._schema.returns)
+
+
+def _may_save(func, args, kwargs) -> bool:
+    """Whether autograd may save a tensor for ``func``'s backward: grad
+    mode is on, an input requires grad, and ``func`` is no view and not
+    one of ``_SAVES_NOTHING``."""
+    if _saves_nothing(func) or not torch.is_grad_enabled():
+        return False
+    for a in (*args, *kwargs.values()):
+        for t in (a if isinstance(a, (list, tuple)) else (a,)):
+            if isinstance(t, torch.Tensor) and t.requires_grad:
+                return True
+    return False
+
+
+class _KeepDots(TorchDispatchMode):
+    """The forward of a "dots" region: keeps each plain product's output
+    (detached; beside it a weak reference to the output and its version,
+    since an alias made under a dispatch mode does not share the output's
+    version counter, and a strong one would tie the output's graph into a
+    cycle through the checkpoint). At the region's end it drops the
+    products made after the last op that may save a tensor for autograd:
+    the recompute stops at that op, so no backward reads them, and the
+    reference keeps a product only where its backward reads it (a layer's
+    last product, which feeds only the residual sum, is not kept)."""
+
+    def __init__(self, kept: list):
+        super().__init__()
+        self.kept = kept
+        self.read = 0       # the products before the last saving op
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if _may_save(func, args, kwargs):
+            # autograd saves an op's inputs before it runs
+            self.read = len(self.kept)
+        out = func(*args, **kwargs)
+        if func in DOTS:
+            self.kept.append((out.detach(), weakref.ref(out), out._version))
+        return out
+
+    def __exit__(self, *exc):
+        del self.kept[self.read:]
+        return super().__exit__(*exc)
+
+
+def _dot_shape(func, args) -> tuple:
+    a, b = args[-2:]        # mm(a, b), addmm(bias, a, b)
+    return (a.shape[0], b.shape[1])
+
+
+class _ReplayDots(TorchDispatchMode):
+    """The recompute of a "dots" region: the i-th plain product returns the
+    i-th kept output (once) instead of running; every other op runs. A
+    kept output changed in place since the forward, or one of another
+    shape than the product asks, raises: the recompute must run the
+    forward's ops in the forward's order."""
+
+    def __init__(self, kept: list):
+        super().__init__()
+        self.kept = kept
+        self.at = 0
+
+    def __enter__(self):
+        self.at = 0
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in DOTS:
+            i, self.at = self.at, self.at + 1
+            if i < len(self.kept) and self.kept[i] is not None:
+                out, ref, version = self.kept[i]
+                self.kept[i] = None
+                # a dead output has no view left that could have changed it
+                now = version if ref() is None else ref()._version
+                if now != version \
+                        or tuple(out.shape) != _dot_shape(func, args):
+                    raise RuntimeError(
+                        f"remat_policy='dots': product {i} of the region "
+                        f"was kept at {tuple(out.shape)} (version "
+                        f"{version}); the recompute asks for "
+                        f"{_dot_shape(func, args)} and finds version {now}")
+                return out
+        return func(*args, **(kwargs or {}))
+
+
+def _dots_contexts():
+    """``context_fn`` of a "dots" checkpoint: the forward's mode and the
+    recompute's, over one list of kept products."""
+    kept: list = []
+    return _KeepDots(kept), _ReplayDots(kept)
+
+
 def remat_wrap(fn, cfg: ModelConfig):
     """``fn`` under ``torch.utils.checkpoint`` where ``cfg.remat`` is set
-    and a gradient is being recorded (its saved activations are dropped
-    and recomputed in the backward), else ``fn`` itself."""
+    and a gradient is being recorded, else ``fn`` itself.
+    ``cfg.remat_policy`` "full" drops every activation of ``fn`` and
+    recomputes it in the backward. Any other value means "dots", as in the
+    reference (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``):
+    the outputs of the plain matrix products (``DOTS``) that the backward
+    reads are kept from the forward, and the recompute runs everything
+    else. Checkpoints nest: each level keeps its own."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return fn
+    kw = {} if cfg.remat_policy == "full" else {"context_fn": _dots_contexts}
     return functools.partial(torch.utils.checkpoint.checkpoint, fn,
-                             use_reentrant=False, preserve_rng_state=False)
+                             use_reentrant=False, preserve_rng_state=False,
+                             **kw)
 
 
 # ------------------------------------------------------------ full forward
@@ -255,7 +381,9 @@ def _stack(params):
 
 def _forward(params, tokens, cfg: ModelConfig, patch_embeds=None):
     """-> (logits (b, s_text, V) float32, MoE aux loss, z-loss), the two
-    summed over the layers; each layer under ``remat_wrap``."""
+    summed over the layers; each of ``layers`` under ``remat_wrap``, and
+    ``dense0`` outside it, as the reference scans and remats ``layers``
+    alone."""
     x = _assemble_input(params, tokens, cfg, patch_embeds)
     aux = z = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
@@ -263,9 +391,12 @@ def _forward(params, tokens, cfg: ModelConfig, patch_embeds=None):
         for lp in params["layers"]:
             x = mamba(lp, x)
     else:
-        layer = remat_wrap(lambda lp, h: _layer_full(h, lp, cfg)[:2], cfg)
-        for lp in _stack(params):
-            x, (a, zz) = layer(lp, x)
+        def body(lp, h):
+            return _layer_full(h, lp, cfg)[:2]
+        layer = remat_wrap(body, cfg)
+        calls = [(body, params["dense0"])] if "dense0" in params else []
+        for fn, lp in calls + [(layer, lp) for lp in params["layers"]]:
+            x, (a, zz) = fn(lp, x)
             if a is not None:
                 aux, z = aux + a, z + zz
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -12,6 +12,9 @@ updates in place; each later call copies the batch in and replays. A call
 with other param or state tensors than those captured over (a restored
 checkpoint) drops the graph and captures anew, as jit retraces on new
 buffers; a batch of another shape or dtype takes a graph of its own.
+Under ``remat_policy="dots"`` the products each checkpoint keeps live from
+the forward to the backward inside that one graph, so its pool holds them
+as well.
 """
 from __future__ import annotations
 

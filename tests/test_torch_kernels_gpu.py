@@ -621,11 +621,13 @@ GRAD_ARCHS = ["gemma-2b", "deepseek-v2-lite-16b", "mamba2-370m", "zamba2-7b",
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["full", "dots"])
 @pytest.mark.parametrize("arch", GRAD_ARCHS)
-def test_model_gradients_on_the_card_equal_the_cpu(cuda, arch):
+def test_model_gradients_on_the_card_equal_the_cpu(cuda, arch, policy):
     """The smoke model's loss and every gradient leaf at f32 on the card
     (K3 and K5 through their Functions) against the CPU's (the plain
-    versions under autograd), from the same params and batch."""
+    versions under autograd), from the same params and batch, under
+    either ``remat_policy``."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels.flash_attention import backward as fa_bwd
     from repro_torch.kernels.ssd import backward as ssd_bwd
@@ -633,7 +635,8 @@ def test_model_gradients_on_the_card_equal_the_cpu(cuda, arch):
     from repro_torch.training.data import SyntheticLM
     from repro_torch.training.train_step import value_and_grad
     from repro_torch.tree import leaves, tree_map
-    cfg = get_smoke_config(arch).replace(compute_dtype="float32")
+    cfg = get_smoke_config(arch).replace(compute_dtype="float32",
+                                         remat_policy=policy)
     model = build(cfg)
     params = model.init_train_params(seed=0, device="cpu")
     batch = SyntheticLM(cfg, 2, 16, seed=1, device="cpu").batch_at(0)
@@ -892,14 +895,15 @@ def test_graph_prefills_replay_equal_eager(cuda, engine, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["full", "dots"])
 @pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-370m"])
-def test_captured_train_step_equals_eager_on_the_card(cuda, arch,
+def test_captured_train_step_equals_eager_on_the_card(cuda, arch, policy,
                                                       monkeypatch):
     """The smoke model's train step (bf16 compute, K3 or K5 through its
-    Function, remat, clip, AdamW), deterministic: three steps replayed
-    from one CUDA graph against three eager steps from the same params,
-    metrics and params and optimizer state bit for bit, the kernel's
-    launches equal."""
+    Function, remat under either ``remat_policy``, clip, AdamW),
+    deterministic: three steps replayed from one CUDA graph against three
+    eager steps from the same params, metrics and params and optimizer
+    state bit for bit, the kernel's launches equal."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import build
     from repro_torch.training import optimizer as opt
@@ -907,7 +911,7 @@ def test_captured_train_step_equals_eager_on_the_card(cuda, arch,
     from repro_torch.training.train_step import make_train_step
     from repro_torch.tree import leaves
     monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    cfg = get_smoke_config(arch)
+    cfg = get_smoke_config(arch).replace(remat_policy=policy)
     model = build(cfg)
     ocfg = opt.AdamWConfig()
     data = SyntheticLM(cfg, 2, 16, seed=1, device=cuda)

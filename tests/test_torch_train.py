@@ -4,7 +4,7 @@
     ``jax.value_and_grad(model.loss, has_aux=True)`` from the same
     converted params and the same ``SyntheticLM`` batch (one JAX compile
     each);
-  * remat on and off give equal gradients;
+  * remat on (under "full" and "dots") and off give equal gradients;
   * K3's gradient (``backward.flash_attention_backward``, what
     ``FlashAttentionFn`` runs) and K5's (``backward.ssd_backward``, what
     ``SSDFn`` runs) against ``jax.vjp`` of the reference's
@@ -115,13 +115,14 @@ def test_loss_and_grads_equal_reference(arch):
         assert (np.abs(np.asarray(a)).max() > 0) == bool(b.abs().max() > 0)
 
 
+@pytest.mark.parametrize("policy", ["full", "dots"])
 @pytest.mark.parametrize("arch", ["gemma-2b", "llama4-scout-17b-a16e",
                                   "mamba2-370m", "zamba2-7b",
                                   "whisper-tiny"])
-def test_remat_gives_equal_gradients(arch):
+def test_remat_gives_equal_gradients(arch, policy):
     """Recomputed activations are the same activations: the gradients with
-    ``remat`` on and off are equal."""
-    _, cfg = _cfgs(arch)
+    ``remat`` on, under either ``remat_policy``, and off are equal."""
+    _, cfg = _cfgs(arch, remat_policy=policy)
     params = build(cfg).init_train_params(seed=0, device="cpu")
     batch = SyntheticLM(cfg, batch=2, seq=16, seed=2, device="cpu").batch_at(0)
     (l_on, _), g_on = value_and_grad(build(cfg.replace(remat=True)).loss)(
