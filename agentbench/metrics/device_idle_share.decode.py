@@ -1,0 +1,7 @@
+"""1 - device busy / wall of the traced sub-window, percent."""
+
+
+def read(run):
+    if run.trace is None or not run.trace.window_s:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
