@@ -280,6 +280,16 @@ class AgentRM:
         self._ev_demoted = rec.name("sched.demoted", ("tid", "level"))
         self._ev_boosted = rec.name("sched.boosted", ("tid",))
         self._ev_reaped = rec.name("sched.reaped", ("tid", "retries"))
+        # the turn's engine session, at each begin_turn (resumed 0) and
+        # resume_turn (1): joins the MLFQ's tids to the engine's rids
+        self._ev_started = rec.name("sched.started",
+                                    ("tid", "rid", "resumed"))
+        # the fused dispatcher's pass, as spans on its own track: the locked
+        # section before the step, the one after it, and the idle wait
+        self._tr_disp = rec.track("dispatcher", group="sched")
+        self._ev_pass = rec.name("sched.pass", ("running", "queued"))
+        self._ev_charge = rec.name("sched.charge", ("serviced", "finished"))
+        self._ev_wait = rec.name("sched.wait")
         # fault/recovery instrumentation (DESIGN.md §14): counters for every
         # recovery mechanism plus trace instants on a dedicated track, so a
         # chaos soak's Perfetto view shows faults next to scheduling
@@ -297,6 +307,7 @@ class AgentRM:
         self._c_429 = m.counter("rm.rate_limit_events")
         self._c_step_timeouts = m.counter("rm.step_timeouts")
         self._c_sheds = m.counter("rm.admissions_shed")
+        self._c_preempt = m.counter("rm.preemptions")
         self._consec_failures = 0
         self._backoff = self.cfg.step_backoff_s
         self._step_runner: Optional[_StepRunner] = None
@@ -528,7 +539,12 @@ class AgentRM:
         # dispatcher thread runs, the cycle cannot bite
         from repro_torch.serving import errors as engine_errors
         self._errs = engine_errors
+        trec = self.obs.recorder
         while not self._stop.is_set():
+            # the pass's spans: lock acquisition included; with the
+            # recorder off no clock is read for them
+            tracing = trec.enabled
+            tp = trec.now() if tracing else 0.0
             now = time.monotonic()
             with self._lock:
                 self.policy.on_tick(now)
@@ -541,9 +557,15 @@ class AgentRM:
                     # rung, apply at most one bounded mechanism action
                     self.autopilot.on_pass(now, len(self.policy))
                 idle = not self._running
+                if tracing:
+                    trec.complete(self._ev_pass, self._tr_disp, tp,
+                                 len(self._running), len(self.policy))
             if idle:
+                tw = trec.now() if tracing else 0.0
                 self._wake.wait(timeout=0.02)
                 self._wake.clear()
+                if tracing:
+                    trec.complete(self._ev_wait, self._tr_disp, tw)
                 continue
             try:
                 report = self._checked_step(be)
@@ -552,6 +574,7 @@ class AgentRM:
                 continue
             self._consec_failures = 0
             self._backoff = self.cfg.step_backoff_s
+            tc = trec.now() if tracing else 0.0
             now = time.monotonic()
             with self._lock:
                 rid_to_tid = {r["rid"]: t for t, r in self._running.items()}
@@ -589,6 +612,9 @@ class AgentRM:
                         self._finish_fused(tid, error=e)
                         continue
                     self._finish_fused(tid, result=out)
+                if tracing:
+                    trec.complete(self._ev_charge, self._tr_disp, tc,
+                                 len(report.serviced), len(report.finished))
 
     def _checked_step(self, be):
         """One ``backend.step()``, optionally under the watchdog deadline.
@@ -746,6 +772,7 @@ class AgentRM:
             served = rec["served_run"]
             rec["served_run"] = 0
             self._parked[tid] = rec
+            self._c_preempt.inc()
             self.monitor.on_lane(-1)
             self.drf.release(turn.agent_id, 1.0, turn.tokens)
             turn.state = TurnState.QUEUED
@@ -862,6 +889,8 @@ class AgentRM:
                 wait = trec.now() - getattr(nxt, "_trace_enq", trec.now())
                 trec.instant(self._ev_admitted, self._tr_mlfq[lvl],
                              nxt.tid, lvl, wait)
+                trec.instant(self._ev_started, self._tr_mlfq[lvl], nxt.tid,
+                             rec["rid"], float(resuming))
             nxt.state = TurnState.RUNNING
             nxt.start = nxt.start or now
             if nxt.first_wait is None:

@@ -5,12 +5,12 @@
 
   * ``metrics`` — a ``MetricsRegistry`` that is ALWAYS active (counters
     and fixed-bucket histograms are cheap enough for the hot path) and is
-    the single source every stats surface reads from: the engine's
+    the single source the stats surfaces read from: the engine's
     ``step_stats()``/``kv_stats()``, the middleware's ``ResourceMonitor``
-    snapshot, and every BENCH json — so they can never disagree.
+    snapshot and the overload autopilot, so they can never disagree.
   * ``recorder`` — a ``FlightRecorder`` ring-buffer event log, gated OFF
-    by default by ``TraceConfig`` (overhead contract: <= 2% tokens/sec
-    when on, CI-gated).
+    by default by ``TraceConfig`` (budget when on: <= 2% of a step's
+    wall time).
 
 One ``Observability`` per serving stack: build it once and pass it to the
 engine and ``AgentRM`` (the middleware auto-adopts its backend's engine

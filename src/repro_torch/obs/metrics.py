@@ -260,21 +260,6 @@ class MetricsRegistry:
             return {name: m.snapshot()
                     for name, m in sorted(self._metrics.items())}
 
-    def render_text(self) -> str:
-        """Prometheus-ish exposition: one block per metric, histogram
-        quantiles as pre-baked lines (this is a dump format, not a live
-        scrape endpoint — no _bucket series needed)."""
-        out = []
-        for name, snap in self.snapshot().items():
-            flat = name.replace(".", "_").replace("-", "_")
-            out.append(f"# TYPE {flat} {snap['type']}")
-            if snap["type"] == "histogram":
-                for k in ("count", "sum", "min", "max", "p50", "p95", "p99"):
-                    out.append(f"{flat}_{k} {snap[k]:.9g}")
-            else:
-                out.append(f"{flat} {snap['value']:.9g}")
-        return "\n".join(out) + "\n"
-
     def dump_json(self, path: str):
         with open(path, "w") as f:
             json.dump(self.snapshot(), f, indent=2)

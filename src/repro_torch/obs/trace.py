@@ -1,33 +1,40 @@
 """Flight-recorder tracing (DESIGN.md §12).
 
-A preallocated ring-buffer event log for the fused serving stack:
+A ring-buffer event log for the fused serving stack:
 
-  * **Fixed capacity, allocation-free on the hot path.** Events live in
-    preallocated numpy arrays (timestamp, duration, interned name id,
-    interned track id, up to four float64 args); recording an event is a
-    handful of scalar stores. When the ring is full the oldest events are
-    overwritten — flight-recorder semantics — and ``dropped`` counts the
-    casualties, so a reader always knows whether the window is complete.
-  * **One clock domain.** Every timestamp is host ``time.perf_counter()``
-    (monotonic, sub-microsecond). There are deliberately NO in-jit
-    timestamps: a device-side clock read would force a host sync (or a new
-    output crossing the jit boundary), breaking the megastep's
-    one-dispatch / int32-only-return contract — see DESIGN.md §12.
-  * **Spans and instants.** A span is recorded at its END as a Chrome
-    "complete" event (begin timestamp captured by the caller via
-    ``now()``); an instant is a point event. Interning (``name()``,
-    ``track()``) happens once at instrumentation-setup time, so the hot
-    path never hashes strings.
-  * **Exporters.** ``export_chrome`` writes Chrome trace-event JSON that
-    loads in Perfetto / chrome://tracing — tracks are (pid, tid) pairs
-    derived from the registered track groups (one process row per group:
-    engine, engine rows, sessions, mlfq) — and ``export_ndjson`` writes
-    newline-delimited JSON for ad-hoc tooling. ``validate_chrome`` is the
-    schema check CI runs against the exported artifact.
+  * **Fixed capacity.** Events live in parallel Python lists sized at
+    construction (timestamp, duration, interned name id, interned track
+    id, up to four numeric args); recording an event is a handful of list
+    slot stores, with no string hashing and no growth. The stored floats
+    are the objects the caller's clock read and arguments already made.
+    When the ring is full the oldest events are overwritten —
+    flight-recorder semantics — and ``dropped`` counts the casualties, so
+    a reader always knows whether the window is complete.
+  * **One clock.** Every timestamp is host ``time.perf_counter()``
+    (monotonic, sub-microsecond). There are deliberately NO device-side
+    timestamps: a device clock read would need a host sync inside the
+    captured step. At construction and at ``reset()`` the recorder takes
+    a pair (``perf_counter``, ``time.time_ns()``); ``epoch_ns(t)`` puts a
+    timestamp on the Unix epoch, the clock a device trace of
+    ``torch.profiler`` also reads (its Chrome export writes ``ts`` as
+    microseconds after its ``baseTimeNanoseconds``; base plus ``ts`` is
+    the epoch time).
+  * **Spans and instants.** A span is a Chrome "complete" event recorded
+    at its end, from a begin timestamp the caller took with ``now()``
+    (``complete``), or from both ends (``interval``, for a chain of phases
+    whose boundaries the caller stamped once each); an instant is a point
+    event. Interning (``name()``, ``track()``) happens once at
+    instrumentation-setup time.
+  * **Export.** ``chrome()`` / ``export_chrome`` give Chrome trace-event
+    JSON that loads in Perfetto / chrome://tracing, ``ts`` in microseconds
+    since the Unix epoch; tracks are (pid, tid) pairs derived from the
+    registered track groups (one process row per group: engine, engine
+    rows, sessions, mlfq, sched). ``validate_chrome`` is its schema check.
 
 A disabled recorder (``TraceConfig(enabled=False)``, the default) keeps
-the full API but drops every event before touching the buffer, so
-instrumented code needs no branches beyond the recorder's own.
+the full API but drops every event before touching the buffer; hot paths
+also test ``enabled`` themselves, so that with the recorder off they read
+no clock for it.
 """
 from __future__ import annotations
 
@@ -41,16 +48,14 @@ import numpy as np
 __all__ = ["TraceConfig", "FlightRecorder", "validate_chrome"]
 
 _INSTANT, _SPAN = 0, 1
-_MAX_ARGS = 4
 
 
 @dataclasses.dataclass
 class TraceConfig:
-    """Gates the flight recorder. Off by default; when on, the overhead
-    contract is <= 2% tokens/sec on the sched_live smoke (CI-gated via
-    BENCH_obs.json)."""
+    """Gates the flight recorder. Off by default; its budget when on is
+    <= 2% of a step's wall time (DESIGN.md §12)."""
     enabled: bool = False
-    capacity: int = 1 << 16      # events; ~3 MB of ring at 44 B/event
+    capacity: int = 1 << 16      # events; 9 list slots (72 B) each
 
     def __post_init__(self):
         if self.capacity < 16:
@@ -73,11 +78,9 @@ class FlightRecorder:
         n = self.config.capacity
         self.capacity = n
         # Hot-path ring: parallel preallocated Python lists. A plain list
-        # slot store is ~2.5x cheaper than a numpy scalar assignment, and
-        # every stored value is a reference the caller already holds
-        # (floats from perf_counter()/args, interned small ints) — so the
-        # emit path stays allocation-free. numpy views are rebuilt only at
-        # export time in events().
+        # slot store is ~2.5x cheaper than a numpy scalar assignment; the
+        # values stored are the caller's (floats from perf_counter() and
+        # args, interned small ints). Decoded only at export, in events().
         self._ts = [0.0] * n
         self._dur = [0.0] * n
         self._ph = [0] * n
@@ -94,7 +97,19 @@ class FlightRecorder:
         self._name_ids: Dict[str, int] = {"event": 0}
         self._tracks: List[Tuple[str, str]] = [("main", "main")]
         self._track_ids: Dict[Tuple[str, str], int] = {("main", "main"): 0}
-        self._t0 = time.perf_counter()
+        self._anchor()
+
+    def _anchor(self):
+        """The (perf_counter, epoch ns) pair ``epoch_ns`` maps by: the
+        epoch read between two perf_counter reads, set at their middle."""
+        a = time.perf_counter()
+        wall = time.time_ns()
+        self._epoch = ((a + time.perf_counter()) / 2, wall)
+
+    def epoch_ns(self, t: float) -> int:
+        """A ``now()`` timestamp as nanoseconds since the Unix epoch."""
+        perf, wall = self._epoch
+        return wall + round((t - perf) * 1e9)
 
     # ------------------------------------------------------ interning
     def name(self, label: str, arg_labels: Sequence[str] = ()) -> int:
@@ -177,13 +192,14 @@ class FlightRecorder:
         self._a3[i] = a3
         self._total += 1
 
-    def span(self, label: str, track_label: str = "main",
-             group: str = "main", **args):
-        """Convenience context-manager span for non-hot-path callers (hot
-        paths pre-intern and call ``complete`` directly)."""
-        return _Span(self, self.name(label, tuple(args)),
-                     self.track(track_label, group),
-                     tuple(float(v) for v in args.values()))
+    def interval(self, name_id: int, track_id: int, t0: float, t1: float,
+                 a0: float = 0.0, a1: float = 0.0, a2: float = 0.0,
+                 a3: float = 0.0):
+        """Record a span from ``t0`` to ``t1`` (both from ``now()``)."""
+        if not self.enabled:
+            return
+        self._emit(_SPAN, name_id, track_id, t0,
+                   t1 - t0 if t1 > t0 else 0.0, a0, a1, a2, a3)
 
     # ------------------------------------------------------ accounting
     @property
@@ -202,7 +218,7 @@ class FlightRecorder:
 
     def reset(self):
         self._total = 0
-        self._t0 = time.perf_counter()
+        self._anchor()
 
     # ------------------------------------------------------- exporting
     def events(self) -> List[dict]:
@@ -244,8 +260,9 @@ class FlightRecorder:
         return mapping
 
     def chrome(self) -> dict:
-        """Chrome trace-event JSON object (ts/dur in microseconds,
-        relative to recorder start; metadata rows name each group/track)."""
+        """Chrome trace-event JSON object: ``ts`` in microseconds since the
+        Unix epoch (``epoch_ns``), ``dur`` in microseconds; metadata rows
+        name each group/track."""
         mapping = self._pids_tids()
         evs: List[dict] = []
         seen_groups = set()
@@ -260,7 +277,7 @@ class FlightRecorder:
         for e in self.events():
             pid, tid = mapping[self._track_ids[(e["group"], e["track"])]]
             ev = {"name": e["name"], "ph": e["ph"], "pid": pid, "tid": tid,
-                  "ts": (e["ts"] - self._t0) * 1e6, "cat": e["group"],
+                  "ts": self.epoch_ns(e["ts"]) / 1e3, "cat": e["group"],
                   "args": e["args"]}
             if e["ph"] == "X":
                 ev["dur"] = e["dur"] * 1e6
@@ -269,40 +286,17 @@ class FlightRecorder:
             evs.append(ev)
         return {"traceEvents": evs, "displayTimeUnit": "ms",
                 "otherData": {"dropped_events": self.dropped,
-                              "clock_domain": "host perf_counter"}}
+                              "clock_domain": "unix_epoch_us: host "
+                              "perf_counter anchored to time.time_ns"}}
 
     def export_chrome(self, path: str):
         with open(path, "w") as f:
             json.dump(self.chrome(), f)
 
-    def export_ndjson(self, path: str):
-        with open(path, "w") as f:
-            for e in self.events():
-                f.write(json.dumps(e) + "\n")
-
-
-class _Span:
-    __slots__ = ("rec", "name_id", "track_id", "args", "t0")
-
-    def __init__(self, rec: FlightRecorder, name_id: int, track_id: int,
-                 args: Tuple[float, ...]):
-        self.rec, self.name_id, self.track_id = rec, name_id, track_id
-        self.args = args
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        a = self.args + (0.0,) * (_MAX_ARGS - len(self.args))
-        self.rec.complete(self.name_id, self.track_id, self.t0, *a[:4])
-        return False
-
 
 def validate_chrome(obj: dict) -> List[str]:
     """Schema check for an exported Chrome trace: returns a list of
-    problems (empty = valid). CI runs this against the sched_live trace
-    artifact."""
+    problems (empty = valid)."""
     problems = []
     evs = obj.get("traceEvents")
     if not isinstance(evs, list) or not evs:

@@ -224,20 +224,28 @@ class CapturedStep:
                             if None not in (before_pool, after_pool)
                             else None)
 
-    def __call__(self, arrays: Optional[Dict] = None):
+    def stage(self, arrays: Optional[Dict] = None) -> None:
         if self.inputs is not None:
             self.inputs.stage(arrays)
+
+    def replay(self):
         out = self.graph.replay()
         for w, d in self.launch_delta.items():
             w.launches += d
         return out
+
+    def __call__(self, arrays: Optional[Dict] = None):
+        self.stage(arrays)
+        return self.replay()
 
 
 class StepGraphs:
     """One engine's captured steps, by key, sharing one memory pool and one
     side stream on the card. ``run(key, fn, arrays)`` replays the key's
     step, or at its first call stages ``arrays``, warms ``fn`` up (that
-    call's result) and captures it. ``fn`` takes the arrays' names as
+    call's result) and captures it; ``stage`` does the staging alone and
+    returns the rest as a call, so that a caller can time the two apart.
+    ``fn`` takes the arrays' names as
     keyword tensors; ``arrays`` (numpy int32 arrays, or tensors of any
     dtype: ``static_inputs``) None means ``fn()`` reads persistent
     tensors of its own. ``capture`` is ``capture_cuda`` on the card,
@@ -264,10 +272,20 @@ class StepGraphs:
 
     def run(self, key, fn: Callable,
             arrays: Optional[Dict] = None):
+        return self.stage(key, fn, arrays)()
+
+    def stage(self, key, fn: Callable,
+              arrays: Optional[Dict] = None) -> Callable:
+        """A captured key: ``arrays`` staged and its replay returned; a
+        first call: ``run``'s first call, returned unrun."""
         step = self.steps.get(key)
-        if step is not None:
-            self.replays += 1
-            return step(arrays)
+        if step is None:
+            return lambda: self._first_call(key, fn, arrays)
+        step.stage(arrays)
+        self.replays += 1
+        return step.replay
+
+    def _first_call(self, key, fn: Callable, arrays: Optional[Dict]):
         inputs = None
         if arrays is not None:
             inputs = static_inputs(arrays, self.device)

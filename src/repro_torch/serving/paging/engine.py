@@ -71,6 +71,12 @@ from repro_torch.serving.errors import (EngineError, KVPressureError,
 QUEUED, ACTIVE, PARKED, SWAPPED, FREED = \
     "queued", "active", "parked", "swapped", "freed"
 
+# a megastep's host phases, in order, each an ``engine.<phase>`` span on the
+# flight recorder's megastep track: admission, the (rows, C) pack, staging
+# the inputs (host twin and H2D copy), the launch (the graph's replay, or
+# the eager call), waiting on the device for the sampled ids, bookkeeping
+PHASES = ("admit", "pack", "stage", "launch", "readback", "bookkeep")
+
 
 # minimum non-decode dispatch width, kept equal to the reference's (there it
 # is the Pallas sublane width) so both engines draw C from the same set
@@ -304,9 +310,14 @@ class PagedInferenceEngine:
         self._tr_rows = [rec.track(f"row {s}", group=f"{name} rows")
                          for s in range(max_batch)]
         self._sess_tracks: Dict[int, int] = {}
-        self._ev_step = rec.name(
-            "engine.megastep",
-            ("C", "rows", "tokens_real", "tokens_dispatched"))
+        # a megastep's span and the host phases inside it share the step's
+        # sequence number (``step()`` calls); ``engine.admit`` ends where
+        # the megastep's span begins, and pack .. bookkeep tile that span
+        self._seq = 0
+        self._ev_step = rec.name("engine.megastep",
+                                 ("seq", "C", "rows", "tokens_real"))
+        self._ev_phases = [rec.name(f"engine.{p}", ("seq", "C", "rows"))
+                           for p in PHASES]
         # one instant per sharded megastep: mesh shape + per-shard work +
         # an estimate of what the per-layer sums of the attention partials
         # moved. Emitted only when tp > 1, so single-device traces are
@@ -371,21 +382,27 @@ class PagedInferenceEngine:
                                               self.cache.pools()[0], toks,
                                               cache_len, valid, table)
 
-    def _dispatch(self, key, fn, arrays: Dict[str, np.ndarray]):
-        """``fn`` over ``arrays``: on the eager route as fresh device
-        tensors, else replayed from ``key``'s captured step (captured at
-        its first call). The captured steps are dropped first if the
-        cache's pools are no longer the tensors they were captured over
-        (``set_pools``), as jit retraces on new buffers."""
+    def _stage(self, key, fn, arrays: Dict[str, np.ndarray]):
+        """``fn`` over ``arrays`` made ready, and the call that launches
+        it: on the eager route the arrays as fresh device tensors, else
+        staged into ``key``'s captured step (captured at its first call,
+        which the returned call makes). The captured steps are dropped
+        first if the cache's pools are no longer the tensors they were
+        captured over (``set_pools``), as jit retraces on new buffers."""
         if self.graphs is None:
-            return fn(**{n: torch.from_numpy(a).to(self.device)
-                         for n, a in arrays.items()})
+            ins = {n: torch.from_numpy(a).to(self.device)
+                   for n, a in arrays.items()}
+            return lambda: fn(**ins)
         pools = tuple(t.data_ptr() for shard in self.cache.pools()
                       for t in (shard["k"], shard["v"]))
         if pools != self._graph_pools:
             self.graphs.clear()
             self._graph_pools = pools
-        return self.graphs.run(key, fn, arrays)
+        return self.graphs.stage(key, fn, arrays)
+
+    def _dispatch(self, key, fn, arrays: Dict[str, np.ndarray]):
+        """``fn`` over ``arrays``, staged and launched (``_stage``)."""
+        return self._stage(key, fn, arrays)()
 
     def _null_inputs(self, C: int) -> Dict[str, np.ndarray]:
         """A megastep's inputs with no live row: every write lands in the
@@ -770,13 +787,20 @@ class PagedInferenceEngine:
         baseline."""
         self.last_serviced = {}
         self.last_failures = []
+        self._seq += 1
+        rec = self.obs.recorder
+        tracing = rec.enabled and self.use_megastep
+        ta = time.perf_counter() if tracing else 0.0
         self._admit()                 # may append swap-IO casualties
         if not self.active:
+            if tracing:
+                rec.complete(self._ev_phases[0], self._tr_step, ta,
+                             self._seq)
             return []
         t0 = time.perf_counter()
         before = self._c_jit.value
         if self.use_megastep:
-            fins = self._step_megastep(t0)
+            fins = self._step_megastep(t0, ta)
         else:
             fins = self._step_legacy(t0)
         if self._c_jit.value != before:     # a work-doing iteration
@@ -999,7 +1023,7 @@ class PagedInferenceEngine:
                 remaining -= T
         return rows
 
-    def _step_megastep(self, t0: float = 0.0) -> List[PagedRequest]:
+    def _step_megastep(self, t0: float, ta: float) -> List[PagedRequest]:
         """The fused iteration: pack one (max_batch, C) token matrix
         (decode-first under a token budget — see ``_pack_rows``), make ONE
         ``mixed_step_paged`` call over the union (K/V scatter, paged
@@ -1013,10 +1037,20 @@ class PagedInferenceEngine:
         around the one dispatch (pack -> dispatch -> int32 readback),
         annotated with C / rows / tokens — all host-available already, so
         the one-dispatch and int32-return contracts are untouched by
-        tracing."""
+        tracing. With the recorder on, the host phases (``PHASES``: admit
+        from ``ta`` to ``t0``, then pack, stage, launch, readback,
+        bookkeep) are one span each; with it off no clock is read for
+        them."""
+        rec = self.obs.recorder
+        tracing = rec.enabled
         finished: List[PagedRequest] = []
         rows = self._pack_rows()             # (req, T) surviving growth
         if not rows:
+            if tracing:
+                tp = time.perf_counter()
+                for ev, a, b in ((self._ev_phases[0], ta, t0),
+                                 (self._ev_phases[1], t0, tp)):
+                    rec.interval(ev, self._tr_step, a, b, self._seq)
             return finished
         C = self._bucket_for(max(T for _, T in rows)) \
             if self.token_budget else \
@@ -1037,16 +1071,19 @@ class PagedInferenceEngine:
             ins["tables"][s] = req.table.padded(self.max_pages)
             if req.rid in self._poison_rids:
                 ins["poison"][s] = True
-        next_tok = self._dispatch(("mega", C), self._mega, ins)
+        ts = time.perf_counter() if tracing else 0.0
+        launch = self._stage(("mega", C), self._mega, ins)
+        tl = time.perf_counter() if tracing else 0.0
+        next_tok = launch()
         if self.graphs is not None:
             self.compiled_buckets.add(C)
         self.jit_dispatches += 1
         self.steps_dispatched += 1
         if any(not r.prefilling for r, _ in rows):
             self.decode_steps += 1
+        tr = time.perf_counter() if tracing else 0.0
         out = next_tok.cpu().numpy()         # (max_batch,) int32 — the only
-        rec = self.obs.recorder              # per-step device->host transfer
-        tracing = rec.enabled
+        tb = time.perf_counter() if tracing else 0.0   # per-step D2H copy
         for req, T in rows:
             was_prefilling = req.prefilling
             req.table.num_tokens += T
@@ -1084,8 +1121,13 @@ class PagedInferenceEngine:
                     self.last_serviced.get(req.rid, 0) + 1
             self._finish_token(req, int(out[req.slot]), finished)
         if tracing:
-            rec.complete(self._ev_step, self._tr_step, t0, C, len(rows),
-                         step_real, self.max_batch * C)
+            te = time.perf_counter()
+            seq, n = self._seq, len(rows)
+            rec.interval(self._ev_step, self._tr_step, t0, te, seq, C, n,
+                         step_real)
+            for ev, a, b in zip(self._ev_phases, (ta, t0, ts, tl, tr, tb),
+                                (t0, ts, tl, tr, tb, te)):
+                rec.interval(ev, self._tr_step, a, b, seq, C, n)
             if self.tp > 1:
                 # what this step's reductions moved, per shard: one
                 # (B, C, d) attention partial per layer
