@@ -10,7 +10,9 @@ its executed path: GQA/MQA/MHA with RoPE, and DeepSeek-V2's MLA.
     per-slot length (kernel K4);
   * ``gqa_decode_paged`` / ``gqa_prefill_chunk_paged`` — the legacy paged
     loop's decode (K2) and one sequence's prefill chunk (K1);
-  * ``gqa_mixed_step_paged`` — the megastep's mixed batch (K1);
+  * ``gqa_mixed_step_paged`` — the megastep's mixed batch (K1), its
+    projections over the (B, C) batch or over the flat token axis that
+    ``flat_slots`` lays out;
   * ``gqa_decode_ring`` — the hybrid's shared block at decode, one token
     against a ring-buffer cache (K4);
   * ``mla_full`` — MLA over a full sequence, K/V decompressed per head
@@ -25,7 +27,9 @@ where the reference returns new donated buffers. ``pairing`` follows
 ``cfg.gqa_mode`` everywhere, as the reference's executed path does."""
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional
 
 import torch
 
@@ -214,8 +218,46 @@ def gqa_prefill_chunk_paged(params, x, k_pool, v_pool, page_table, cache_len,
     return o.reshape(1, C, -1) @ params["wo"]
 
 
+@dataclasses.dataclass(frozen=True)
+class FlatSlots:
+    """The megastep's flat token axis: N slots that hold the real tokens of
+    a (B, C) batch end to end, row after row (``flat_slots``). The slots
+    past the last real token are spare: they compute what they compute,
+    write zeros into the null block and are never read."""
+    C: int
+    row: torch.Tensor    # (N,) int64: the slot's row (spare: the last row)
+    pos: torch.Tensor    # (N,) int32: its position, cache_lens[row] + column
+    live: torch.Tensor   # (N,) bool: a real token
+    idx: torch.Tensor    # (N,) int64: row * C + column; spare: B * C + slot
+    last: torch.Tensor   # (B,) int64: each row's last slot
+
+    def gather(self, t):
+        """(B * C, ...) -> (N, ...): each slot's entry of a batch tensor (a
+        spare slot reads the batch's last)."""
+        return t[self.idx.clamp(max=t.shape[0] - 1)]
+
+
+def flat_slots(cache_lens, valids, C: int, n: int) -> FlatSlots:
+    """The map from ``n`` flat slots to the (B, C) batch, built on the
+    device from ``valids`` alone (nothing read on the host, so a captured
+    step replays it): an exclusive sum of ``valids`` gives each row's first
+    slot, and a search over the inclusive sum each slot's row. ``n`` must
+    be at least ``sum(valids)``; the engine's token budget keeps it so."""
+    v = valids.long()
+    ends = torch.cumsum(v, 0)
+    slot = torch.arange(n, device=v.device)
+    row = torch.searchsorted(ends, slot, right=True).clamp_(max=v.numel() - 1)
+    col = slot - (ends - v)[row]
+    live = slot < ends[-1]
+    return FlatSlots(C, row, (cache_lens.long()[row] + col).to(torch.int32),
+                     live, torch.where(live, row * C + col,
+                                       v.numel() * C + slot),
+                     (ends - 1).clamp(0, n - 1))
+
+
 def gqa_mixed_step_paged(params, x, k_pool, v_pool, page_tables, cache_lens,
-                         valids, cfg: ModelConfig):
+                         valids, cfg: ModelConfig,
+                         flat: Optional[FlatSlots] = None):
     """One layer's attention over a mixed batch: every row of the (B, C)
     batch is a prefill chunk, decode rows carrying ``valids == 1``.
 
@@ -224,7 +266,17 @@ def gqa_mixed_step_paged(params, x, k_pool, v_pool, page_tables, cache_lens,
     returns new donated buffers instead); page_tables: (B, npages) int32,
     null-padded; cache_lens/valids: (B,) int32. Positions, scatter targets
     and the attention mask come from ``cache_lens``/``valids`` per row,
-    never from C. Returns the (B, C, d) attention output."""
+    never from C. Returns the (B, C, d) attention output.
+
+    With ``flat``, x is (1, N, d) on the flat token axis and so is the
+    output: the projections, rotary and ``wo`` run on the N slots, each
+    slot's K/V is written from there, and only q is scattered into a
+    (B, C) batch for K1, whose output is gathered back. The batch's padded
+    positions are left unwritten: K1 reads each query row alone and their
+    rows are never gathered."""
+    if flat is not None:
+        return _gqa_mixed_flat(params, x, k_pool, v_pool, page_tables,
+                               cache_lens, valids, cfg, flat)
     b, C, _ = x.shape
     blk = k_pool.shape[1]
     npages = page_tables.shape[1]
@@ -245,6 +297,29 @@ def gqa_mixed_step_paged(params, x, k_pool, v_pool, page_tables, cache_lens,
                                    cache_lens, valids, page_tables,
                                    pairing=_pairing(cfg))
     return o.reshape(b, C, -1) @ params["wo"]
+
+
+def _gqa_mixed_flat(params, x, k_pool, v_pool, page_tables, cache_lens,
+                    valids, cfg: ModelConfig, flat: FlatSlots):
+    B, npages = page_tables.shape
+    BC = B * flat.C
+    blk = k_pool.shape[1]
+    q, k, v = _qkv(params, x, flat.pos[None], cfg)
+    page_idx = torch.clamp(flat.pos // blk, 0, npages - 1).long()
+    bids = torch.where(flat.live, page_tables[flat.row, page_idx],
+                       torch.zeros_like(page_tables[0, :1]))
+    # a spare slot's K/V may come from garbage (its attention reads a
+    # padded query row) and lands in the null block, which K1's masked
+    # tiles read at probability 0: zeros keep a NaN out of it
+    live = flat.live[:, None, None]
+    _write_pages(k_pool, v_pool, bids, (flat.pos % blk).long(),
+                 torch.where(live, k[0], 0), torch.where(live, v[0], 0))
+    qb = q.new_empty((BC + flat.idx.numel(), *q.shape[2:]))
+    qb.index_copy_(0, flat.idx, q[0])
+    o = pa.paged_prefill_attention(qb[:BC].view(B, flat.C, *q.shape[2:]),
+                                   k_pool, v_pool, cache_lens, valids,
+                                   page_tables, pairing=_pairing(cfg))
+    return (flat.gather(o.reshape(BC, -1)) @ params["wo"])[None]
 
 
 def gqa_decode_ring(params, x, cache_k, cache_v, cache_len: int,

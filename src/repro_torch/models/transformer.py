@@ -7,7 +7,8 @@ the port of ``repro.models.transformer``, run eagerly.
   * ``init_paged_pools`` / ``decode_step_paged`` / ``prefill_chunk_paged``
     — the legacy paged loop;
   * ``mixed_step_paged`` — the megastep: one call advances the whole mixed
-    batch one engine iteration.
+    batch one engine iteration, its dense layers on the padded batch or on
+    a flat token axis of the real tokens (``flat``).
 
 Each layer is attention (GQA, or MLA where ``cfg.mla`` is set) then an MLP,
 or a routed MoE where ``cfg.moe`` is set (``models.moe``: every token of
@@ -591,9 +592,21 @@ class Shard:
     pools: Dict[str, torch.Tensor]
 
 
+def dense_width(layers, B: int, C: int, flat: Optional[int]) -> int:
+    """The token slots a megastep of (B, C) runs its dense layers on: the
+    flat width ``flat`` where it is below B * C, else B * C (the padded
+    batch). A stack with a routed-MoE layer keeps B * C: its experts'
+    capacity counts every token of a group, the padding slots among them,
+    as in the reference."""
+    if flat is None or flat >= B * C or any("moe" in lp for lp in layers):
+        return B * C
+    return flat
+
+
 def mixed_step_paged(params, pools: Dict, tokens, cache_lens, valids,
                      page_tables, cfg: ModelConfig, poison_mask=None, *,
-                     shards: Optional[Sequence[Shard]] = None):
+                     shards: Optional[Sequence[Shard]] = None,
+                     flat: Optional[int] = None):
     """tokens: (B, C) int32, row b carrying ``valids[b]`` real tokens
     (decode rows: the last sampled token at column 0); cache_lens/valids:
     (B,) int32; page_tables: (B, npages) int32, null-padded; pools: the
@@ -609,7 +622,15 @@ def mixed_step_paged(params, pools: Dict, tokens, cache_lens, valids,
     reference's one ``psum`` per layer. Norms and the MLP or MoE run once
     per distinct device on the identical residual stream; the first
     device unembeds and samples. One shard is the single-device step
-    exactly: its "sum" is no op at all."""
+    exactly: its "sum" is no op at all.
+
+    ``flat`` is a static width N (the engine's: its token budget's largest
+    bucket) at least ``sum(valids)``. Where ``dense_width`` takes it, the
+    embedding, norms, projections, residuals and MLP run on N flat slots
+    holding the real tokens end to end (``attention.flat_slots``), K1
+    still on the (B, C) batch; the partial sums are (N, d). Elsewhere the
+    step is the padded one above, op for op. A row with no real token
+    samples an unspecified id on either route."""
     if shards is None:
         shards = (Shard(cfg, params, pools),)
     devs = list(dict.fromkeys(s.pools["k"].device for s in shards))
@@ -618,7 +639,13 @@ def mixed_step_paged(params, pools: Dict, tokens, cache_lens, valids,
             for dev in devs}
     ins = {dev: [t.to(dev) for t in (tokens, cache_lens, valids,
                                      page_tables)] for dev in devs}
-    x = {dev: _embed(lead[dev], ins[dev][0], cfg) for dev in devs}
+    B, C = tokens.shape
+    n = dense_width(lead[devs[0]]["layers"], B, C, flat)
+    fl = {dev: (attn_mod.flat_slots(ins[dev][1], ins[dev][2], C, n)
+                if n < B * C else None) for dev in devs}
+    x = {dev: _embed(lead[dev], ins[dev][0] if fl[dev] is None else
+                     fl[dev].gather(ins[dev][0].reshape(-1))[None], cfg)
+         for dev in devs}
     for li in range(len(lead[devs[0]]["layers"])):
         hh = {dev: rms_norm(x[dev], lead[dev]["layers"][li]["attn_norm"],
                             cfg.norm_eps) for dev in devs}
@@ -628,7 +655,7 @@ def mixed_step_paged(params, pools: Dict, tokens, cache_lens, valids,
             _, lens, vals, tables = ins[dev]
             parts.append(attn_mod.gqa_mixed_step_paged(
                 s.params["layers"][li]["attn"], hh[dev], s.pools["k"][li],
-                s.pools["v"][li], tables, lens, vals, s.cfg))
+                s.pools["v"][li], tables, lens, vals, s.cfg, flat=fl[dev]))
         for dev in devs:
             a = parts[0].to(dev)
             if len(parts) > 1:
@@ -639,10 +666,14 @@ def mixed_step_paged(params, pools: Dict, tokens, cache_lens, valids,
             x[dev] = h + _mlp(lead[dev]["layers"][li], h, cfg)
     dev = devs[0]
     p, vals = lead[dev], ins[dev][2]
-    h = rms_norm(x[dev], p["final_norm"], cfg.norm_eps)
-    rows = torch.arange(h.shape[0], device=dev)
-    last = torch.clamp(vals.long() - 1, 0, h.shape[1] - 1)
-    logits = _unembed(p, h[rows, last])               # (B, V) f32
+    if fl[dev] is None:
+        h = rms_norm(x[dev], p["final_norm"], cfg.norm_eps)
+        rows = torch.arange(h.shape[0], device=dev)
+        last = torch.clamp(vals.long() - 1, 0, h.shape[1] - 1)
+        h = h[rows, last]
+    else:
+        h = rms_norm(x[dev][0, fl[dev].last], p["final_norm"], cfg.norm_eps)
+    logits = _unembed(p, h)                           # (B, V) f32
     if poison_mask is not None:
         # poison lands after the K/V writes, so only this row's sampled
         # token is affected

@@ -10,7 +10,10 @@ The port of ``repro.serving.paging.engine`` on its megastep path:
     sampling is part of that call, so one (max_batch,) int32 vector is the
     only device-to-host transfer per step.
   * With a ``token_budget`` the pack is **decode-first** and the dispatch
-    width C comes from the bounded pow2 bucket set ``budget_buckets``.
+    width C comes from the bounded pow2 bucket set ``budget_buckets``. A
+    bucket whose (max_batch, C) batch holds more slots than the largest
+    bucket runs its dense layers on that many flat slots instead
+    (``flat_width``, ``mixed_step_paged``'s ``flat``); K1 keeps the batch.
   * Sessions are first-class: retained (parked) between turns, ``extend``ed
     by a later turn, ``fork``ed copy-on-write, prompt prefixes deduplicated.
   * Scheduling hooks: ``park``/``resume`` (bit-exact), ``abort_turn``
@@ -277,6 +280,12 @@ class PagedInferenceEngine:
         self.compiled_buckets: set = set()   # pre-traced by compile_buckets
         self._c_tokens_real = m.counter(f"{name}.tokens_real")
         self._c_tokens_disp = m.counter(f"{name}.tokens_dispatched")
+        # tokens_dispatched still counts the (rows x width) slots K1
+        # computes; the dense layers may run on fewer: dense_slots sums the
+        # slots they ran on (flat_width), flat_steps counts the steps where
+        # those were fewer than rows x width (mixed_step_paged's ``flat``)
+        self._c_flat_steps = m.counter(f"{name}.flat_steps")
+        self._c_dense_slots = m.counter(f"{name}.dense_slots")
         # wall-clock latency distributions (seconds): time-to-first-token
         # per turn, the gap between consecutive output tokens of one turn,
         # and host wall time around each work-doing step. Fixed log-spaced
@@ -359,13 +368,23 @@ class PagedInferenceEngine:
                            n_kv_heads=cfg.n_kv_heads // self.tp,
                            head_dim=cfg.resolved_head_dim)
         trees = self.params if self.mesh is not None else [self.params]
+        # the slots each bucket's dense layers run on: at most the largest
+        # bucket, which no step's real tokens exceed (a live retune only
+        # lowers the budget inside the set), or max_batch where max_len
+        # clamped the budget below it (each decode row takes its token)
+        cap = (max(self.bucket_set[-1], self.max_batch)
+               if self.token_budget is not None else None)
+        self.flat_width = {C: tr.dense_width(trees[0]["layers"],
+                                             self.max_batch, C, cap)
+                           for C in self.bucket_set}
 
         def mega(toks, lens, valids, tables, poison):
             shards = [tr.Shard(lcfg, p, pools)
                       for p, pools in zip(trees, self.cache.pools())]
             return tr.mixed_step_paged(None, None, toks, lens, valids,
                                        tables, cfg, poison.bool(),
-                                       shards=shards)
+                                       shards=shards,
+                                       flat=self.flat_width[toks.shape[1]])
         return mega
 
     def _decode(self, toks, lens, tables):
@@ -1059,6 +1078,9 @@ class PagedInferenceEngine:
         step_real = sum(T for _, T in rows)
         self.tokens_real += step_real
         self.tokens_dispatched += self.max_batch * C
+        self._c_dense_slots.inc(self.flat_width[C])
+        if self.flat_width[C] < self.max_batch * C:
+            self._c_flat_steps.inc()
         ins = self._null_inputs(C)
         for req, T in rows:
             s = req.slot
@@ -1130,9 +1152,9 @@ class PagedInferenceEngine:
                 rec.interval(ev, self._tr_step, a, b, seq, C, n)
             if self.tp > 1:
                 # what this step's reductions moved, per shard: one
-                # (B, C, d) attention partial per layer
+                # (flat_width, d) attention partial per layer
                 itemsize = torch_dtype(self.cfg.compute_dtype).itemsize
-                psum_bytes = (self.cfg.n_layers * self.max_batch * C
+                psum_bytes = (self.cfg.n_layers * self.flat_width[C]
                               * self.cfg.d_model * itemsize)
                 rec.instant(self._ev_psum, self._tr_coll, self.tp,
                             self.cfg.n_layers, psum_bytes,
@@ -1331,6 +1353,8 @@ class PagedInferenceEngine:
             "tokens_real": self.tokens_real,
             "tokens_dispatched": self.tokens_dispatched,
             "padded_token_fraction": self.padded_token_fraction,
+            "flat_steps": int(self._c_flat_steps.value),
+            "dense_slots": int(self._c_dense_slots.value),
             "trace_buckets": sorted(self.trace_buckets),
             "bucket_set": list(self.bucket_set),
             "token_budget": self.token_budget,

@@ -5,7 +5,9 @@ same tokens from both engines on gemma-2b smoke (MQA) and chatglm3-6b smoke
 (hq4/hkv2). Park/resume and hibernate/wake continue bit-exactly, every
 step is one ``mixed_step_paged`` call, and a mid-turn ``export_live``
 payload of the JAX engine adopts into the port and finishes with the
-reference's tokens."""
+reference's tokens. The budget of 16 over 4 rows puts the buckets 8 and 16
+on the flat route (their dense layers on 16 slots): every test here runs
+it, and one counts it."""
 import jax
 import numpy as np
 import pytest
@@ -15,7 +17,7 @@ from repro.models import build
 from repro.serving import PagedInferenceEngine as JaxEngine
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.mesh import make_tp_mesh
-from repro_torch.serving import PagedInferenceEngine, budget_buckets
+from repro_torch.serving import PagedInferenceEngine, budget_buckets, graphs
 from repro_torch.serving.paging import engine as teng
 from repro_torch.weights import params_from_jax
 
@@ -64,6 +66,48 @@ def test_same_tokens_as_reference_engine(arch, gemma):
     assert stats["jit_dispatches_per_step"] == 1.0
     assert set(stats["trace_buckets"]) <= set(stats["bucket_set"])
     assert stats["bucket_set"] == list(budget_buckets(16))
+
+
+def _retuned_turns(eng):
+    """Two turns, then one more turn at each budget rung from the top
+    down (``set_token_budget`` live, between turns)."""
+    out = _two_turns(eng)
+    for budget in reversed(eng.budget_rungs()):
+        eng.set_token_budget(budget)
+        for r in list(eng.reqs):
+            eng.extend(r, np.arange(11) + budget, 3)
+        eng.run_to_completion()
+        out += [list(eng.reqs[r].out_tokens) for r in eng.reqs]
+    return out
+
+
+def test_flat_route_counts_and_keeps_the_graphs(gemma):
+    """The reference engine's tokens through the retunes. ``flat_steps``
+    counts exactly the steps whose 4 x C slots exceed the 16 flat ones
+    (never a decode-only step), ``dense_slots`` the slots the dense layers
+    ran on; ``tokens_dispatched`` still counts 4 x C a step. The captured
+    widths are the bucket set's, and the retunes capture nothing new."""
+    want = _retuned_turns(JaxEngine(gemma[0], gemma[1], **KW))
+    eng = _port(gemma)
+    eng.graphs = graphs.StepGraphs("cpu", capture=graphs.capture_eager)
+    eng.compile_buckets()
+    keys = set(eng.graphs.steps)
+    assert keys == {("mega", C) for C in eng.bucket_set}
+    assert eng.flat_width == {1: 4, 8: 16, 16: 16}
+    widths = []
+    stage = eng._stage
+    eng._stage = lambda key, fn, arrays: (widths.append(key[1])
+                                          or stage(key, fn, arrays))
+    assert _retuned_turns(eng) == want
+    st = eng.step_stats()
+    assert 1 in widths and 8 in widths and 16 in widths
+    assert st["flat_steps"] == sum(C > 4 for C in widths)
+    assert st["dense_slots"] == sum(min(4 * C, 16) for C in widths)
+    assert st["tokens_dispatched"] == sum(4 * C for C in widths)
+    assert st["steps_dispatched"] == len(widths)
+    assert set(eng.graphs.steps) == keys
+    assert eng.graphs.first_calls == len(keys)
+    assert eng.flat_width == {1: 4, 8: 16, 16: 16}
 
 
 def test_park_resume_mid_decode_is_bit_exact(gemma):

@@ -798,6 +798,32 @@ def test_graph_replay_equals_eager_step(cuda, tp, rebind):
 
 
 @pytest.mark.gpu
+def test_flat_bucket_replay_equals_eager(cuda):
+    """bf16: the buckets 8 and 16 of a budget of 16 over 4 rows run their
+    dense layers on 16 flat slots (their K1 on the (4, C) batch); replayed
+    from their graphs they give the eager step's tokens and pools bit for
+    bit, the null block excluded, as at f32 above."""
+    from repro_torch.serving import PagedInferenceEngine
+    cfg, params = _graph_model(cuda, "bfloat16")
+    runs = {}
+    for graphs_on in (False, True):
+        eng = PagedInferenceEngine(cfg, params, device=cuda,
+                                   cuda_graphs=graphs_on, **GRAPH_KW)
+        eng.compile_buckets()
+        toks = _graph_traffic(eng)
+        assert eng.flat_width == {1: 4, 8: 16, 16: 16}
+        assert eng.step_stats()["flat_steps"] > 0
+        runs[graphs_on] = eng, toks
+    (eager, want), (graph, got) = runs[False], runs[True]
+    assert got == want
+    assert graph.step_stats()["flat_steps"] == \
+        eager.step_stats()["flat_steps"]
+    for a, b in zip(graph.cache.full_pools(), eager.cache.full_pools()):
+        assert torch.equal(a[:, 1:], b[:, 1:])
+    assert graph.graph_stats()["first_calls"] == len(graph.bucket_set)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("engine", ["legacy", "dense"])
 def test_graph_decode_launches_per_replay(cuda, engine, dtype):

@@ -17,7 +17,10 @@ reference's initialisation:
     and their tokens take expert capacity);
   * the port's ``PagedInferenceEngine`` (the megastep, every column routed,
     padding included) gives the reference engine's tokens, two turns of
-    three prompts under a token budget, and its dense engine too.
+    three prompts under a token budget, and its dense engine too;
+  * a flat width below B * C leaves an MoE's megastep on its padded path
+    (its capacity counts the padding slots): the step without ``flat``
+    bit for bit, the reference's ids and pools, no flat step counted.
 """
 import dataclasses
 
@@ -30,10 +33,12 @@ import torch
 from repro.configs import get_smoke_config as jax_smoke
 from repro.models import build as jax_build
 from repro.models import moe as jmoe
+from repro.models import transformer as jtr
 from repro.serving import InferenceEngine as JaxDense
 from repro.serving import PagedInferenceEngine as JaxEngine
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import attention, build, moe
+from repro_torch.models import transformer as ttr
 from repro_torch.serving import InferenceEngine, PagedInferenceEngine
 from repro_torch.weights import numpy_to_torch, params_from_jax
 
@@ -198,3 +203,41 @@ def test_dense_engine_matches_reference_engine(models):
     want = run(JaxDense(jcfg, params, max_slots=2, max_len=64))
     assert run(InferenceEngine(tcfg, tp, max_slots=2, max_len=64,
                                device="cpu")) == want
+
+
+def test_flat_width_keeps_the_padded_step(models, monkeypatch):
+    jcfg, params, tcfg, tp = models
+    B, C, blk, npages = 4, 16, 8, 6
+    rng = np.random.default_rng(7)
+    nb = B * npages + 1
+    shape = (tcfg.n_layers, nb, blk, tcfg.n_kv_heads, tcfg.resolved_head_dim)
+    k, v = rng.standard_normal((2, *shape)).astype(np.float32)
+    toks = _tokens(tcfg, B, C, seed=8)
+    valids = np.array([0, 1, C // 2, C], np.int32)
+    lens = np.array([0, 11, 5, npages * blk - C], np.int32)
+    tables = rng.permutation(np.arange(1, nb)).reshape(B, npages).astype(
+        np.int32)
+    monkeypatch.setattr(attention, "flat_slots", None)   # never called
+    runs = []
+    for flat in (None, 16):
+        pools = {"k": torch.from_numpy(k.copy()),
+                 "v": torch.from_numpy(v.copy())}
+        ids = ttr.mixed_step_paged(tp, pools, *map(torch.from_numpy, (
+            toks, lens, valids, tables)), tcfg, flat=flat)
+        runs.append((ids, pools))
+    (want, want_pools), (got, got_pools) = runs
+    assert torch.equal(got, want)
+    for name in ("k", "v"):
+        assert torch.equal(got_pools[name], want_pools[name])
+    jids, jpools = jax.jit(jtr.mixed_step_paged, static_argnames=("cfg",))(
+        params, {"k": jnp.asarray(k), "v": jnp.asarray(v)},
+        *map(jnp.asarray, (toks, lens, valids, tables)), cfg=jcfg)
+    np.testing.assert_array_equal(got.numpy()[1:], np.asarray(jids)[1:])
+    for name in ("k", "v"):
+        np.testing.assert_allclose(got_pools[name].numpy()[:, 1:],
+                                   np.asarray(jpools[name])[:, 1:],
+                                   atol=1e-4, rtol=1e-4)
+    eng = PagedInferenceEngine(tcfg, tp, device="cpu", **KW)
+    assert eng.flat_width == {c: 4 * c for c in eng.bucket_set}
+    _two_turns(eng)
+    assert eng.step_stats()["flat_steps"] == 0

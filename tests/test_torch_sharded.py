@@ -13,6 +13,8 @@ the reference's ``init_params(PRNGKey(0))``. Contracts:
   * a session hibernated at tp 2 wakes at tp 4 and continues exactly;
   * the bucket guard holds under a mesh, and the ``collective.psum``
     instant is traced only under one;
+  * steps whose dense layers run on the flat token axis (4 rows x C above
+    the budget's 16 slots) give the mesh-less engine's tokens at tp 2;
   * the serving rules (head order, specs, the head permutation) and the
     engine's mesh errors equal the reference's;
   * starcoder2 smoke (a derived head_dim, pinned per shard) and the MoE
@@ -146,7 +148,8 @@ def test_one_call_per_step_counts_every_shard(driver, monkeypatch):
     monkeypatch.setattr(transformer, "mixed_step_paged",
                         lambda *a, **kw: calls.append(kw) or mega(*a, **kw))
     monkeypatch.setattr(attention, "gqa_mixed_step_paged",
-                        lambda p, x, *a: attn.append(a[-1]) or gqa(p, x, *a))
+                        lambda p, x, *a, **kw: attn.append(a[-1])
+                        or gqa(p, x, *a, **kw))
     eng = port(driver, cpu_mesh(2))
     drive(eng)
     steps = eng.steps_dispatched
@@ -208,9 +211,31 @@ def test_psum_instant_only_under_mesh(tp, driver):
         return
     assert len(psums) == eng.steps_dispatched
     for e in psums:
-        C = e["args"]["shard_tokens_dispatched"] / 4
+        # the partials are (N, d): N = min(4 * C, the budget's 16) slots
+        n = min(e["args"]["shard_tokens_dispatched"], 16)
         assert e["args"]["tp"] == tp and e["args"]["psums"] == 2
-        assert e["args"]["bytes_per_shard"] == 2 * 4 * C * 64 * 4
+        assert e["args"]["bytes_per_shard"] == 2 * n * 64 * 4
+
+
+def test_flat_steps_at_tp2_equal_meshless(driver):
+    """Three prompts at once: the steps at C = 8 and 16 run their dense
+    layers on 16 flat slots (decode rows and prompt chunks end to end,
+    spare slots after them) and sum (16, d) partials; tp 2 gives the
+    mesh-less engine's tokens, flat steps and, joined, pools."""
+    out = {}
+    for tp in (0, 2):
+        eng = port(driver, cpu_mesh(tp) if tp else None)
+        rids = [eng.submit(np.arange(1 + i, 12 + 9 * i) % 256,
+                           max_new_tokens=5, retain=True) for i in range(3)]
+        eng.run_to_completion()
+        out[tp] = eng, [list(eng.reqs[r].out_tokens) for r in rids]
+    (e0, want), (e2, got) = out[0], out[2]
+    assert got == want
+    st0, st2 = e0.step_stats(), e2.step_stats()
+    assert st2["flat_steps"] == st0["flat_steps"] > 0
+    assert st2["dense_slots"] == st0["dense_slots"]
+    for a, b in zip(e2.cache.full_pools(), e0.cache.full_pools()):
+        torch.testing.assert_close(a[:, 1:], b[:, 1:], atol=1e-5, rtol=1e-5)
 
 
 # ---------------------------------------------- the serving rules
