@@ -35,7 +35,6 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from agentbench.reference import model as ref
 from agentbench.traffic import tokens_of
 
 
@@ -138,12 +137,13 @@ def unwritten(engine, backend) -> int:
     return count
 
 
-def compare(conf: Dict, raw: Dict, picked, pages, vocab: int,
+def compare(ref, conf: Dict, raw: Dict, picked, pages, vocab: int,
             cap: int, control: bool = False) -> Dict[str, float]:
-    """Run the reference over each picked session; the worst KV error and
-    logit gap. With ``control`` also the reference computed in fp8 over
-    the same prompts and tokens (``control_logit_gap``: the gap of the
-    token it puts first at each served position)."""
+    """Run the reference ``ref`` (the kind's module under ``reference/``)
+    over each picked session; the worst KV error and logit gap. With
+    ``control`` also the reference computed in fp8 over the same prompts
+    and tokens (``control_logit_gap``: the gap of the token it puts first
+    at each served position)."""
     ref.exact_float32()
     dev = raw["embed"].device
     worst_kv, worst_gap, n_served, n_struct = 0.0, 0.0, 0, 0

@@ -14,7 +14,7 @@ def read(run):
         s = run.step(seq)
         if s is None or s.width != 1 or not run.trace.k1_s.get(seq):
             continue
-        need += flops.decode_attention_bytes(
+        need += run.kind.decode_attention_bytes(
             run.dims, [ctx for ctx, _, _ in s.rows], run.kv_itemsize) / pk[1]
         took += run.trace.k1_s[seq]
     return 100.0 * need / took if took else None

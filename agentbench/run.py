@@ -14,7 +14,8 @@ come back, the result is checked (``agentbench.check``) and one JSON
 object is printed as the last line of standard output; the numbers
 compared, each beside its limit, are also the last lines of standard
 error. Without a card, or with fewer than the cell asks for, it prints no
-result and exits 2.
+result and exits 2; where JAX or the JAX package has been loaded by the
+time the result would be printed, it names them and exits 3.
 """
 from __future__ import annotations
 
@@ -81,18 +82,19 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool, device,
 
     from agentbench import check, client, stack, traffic, weights
     from agentbench import trace as tracing
-    from agentbench.reference.model import dims
     from agentbench.spec import merged
     from agentbench.view import RunView
 
     conf = merged(cell.config, conf_over or {})
     mix = merged(cell.traffic, mix_over or {})
     seed = int(seed) % (1 << 63)
-    m = dims(conf)
+    kind = cell.kind
+    m = kind.dims(conf)
     dtype = getattr(torch, conf["torch_dtype"])
-    raw = weights.draw(m, seed, device, dtype)
+    raw = weights.draw(m, kind.layer_groups(m), seed, device, dtype)
     clock = time.perf_counter
-    sut = stack.build(conf, mix, raw, device, clock=clock)
+    sut = stack.build(conf, kind.port_config(conf), mix, raw, device,
+                      clock=clock)
     tracer = (tracing.Tracer(TRACE_S, clock, sut.backend.step_lock)
               if trace else None)
     if tracer is not None and device.type == "cuda":
@@ -112,8 +114,7 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool, device,
             sut.rm, sut.backend, sessions, seconds=seconds,
             preroll_s=float(mix["preroll_s"]),
             setup_turns=int(mix["setup_turns"]), extra_s=extra,
-            max_len=min(sut.engine.max_len,
-                        int(conf.get("sliding_window") or 1 << 62)),
+            max_len=kind.max_context(conf, sut.engine.max_len),
             vocab=sut.cfg.vocab_size,
             cap=int(mix["prompt_tokens"]), grace_s=GRACE_S, clock=clock,
             on_window=on_window,
@@ -128,11 +129,10 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool, device,
         peak = torch.cuda.max_memory_allocated(device)
     else:
         peak = 0
-    found = forbidden_modules()
     eng, be = sut.engine, sut.backend
     reading = tracing.read(tracer, be.steps) if tracer is not None else None
     item = eng.cache.pools()[0]["k"].element_size()
-    view = RunView(dims=m, window=win, steps=be.steps,
+    view = RunView(dims=m, kind=kind, window=win, steps=be.steps,
                    setup_s=win.start - T_PROCESS,
                    device_name=(torch.cuda.get_device_name(device)
                                 if device.type == "cuda" else "cpu"),
@@ -168,12 +168,12 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool, device,
     t_check = time.perf_counter()
     numbers = {"turns_lost": lost, "delivery_mismatches": bad,
                "kv_tokens_unwritten": blank,
-               **check.compare(conf, raw, picked, pages, m["V"],
-                               int(mix["prompt_tokens"]),
+               **check.compare(cell.reference, conf, raw, picked, pages,
+                               m["V"], int(mix["prompt_tokens"]),
                                reference_control)}
     counters["check_s"] = time.perf_counter() - t_check
     return {"view": view, "numbers": numbers, "peak": peak,
-            "forbidden": found, "counters": counters}
+            "counters": counters}
 
 
 def judge(numbers: Dict, limits: Dict) -> Dict[str, Dict]:
@@ -200,9 +200,6 @@ def main(argv=None, *, device=None, root: Path = ROOT,
     device = torch.device(device)
     out = execute(cell, args.seed, args.seconds, bool(args.trace), device,
                   conf_over)
-    if out["forbidden"]:
-        say(f"agentbench: the run loaded {out['forbidden']}")
-        return 3
     from agentbench.view import quantile
     view = out["view"]
     metrics = {}
@@ -241,6 +238,11 @@ def main(argv=None, *, device=None, root: Path = ROOT,
                     "numbers": out["numbers"], **out["counters"]}))
     for name, c in checks.items():
         say(f"check {name}: {c['value']} (limit {c['limit']})")
+    # after the window, the check's reference and every reader
+    found = forbidden_modules()
+    if found:
+        say(f"agentbench: the run loaded {found}")
+        return 3
     print(json.dumps(result), flush=True)
     return 0
 

@@ -27,30 +27,6 @@ from repro_torch.core import AgentRM, AgentRMConfig
 from repro_torch.serving import PagedEngineBackend, PagedInferenceEngine
 from repro_torch.weights import prepare_params
 
-ACTS = {"gelu_tanh": "gelu_mlp", "swiglu": "silu"}
-PAIRINGS = {"g_major": "tiled", "kv_major": "grouped"}
-
-
-def port_config(cfg: Dict) -> ModelConfig:
-    """The program's ``ModelConfig`` for a configuration file."""
-    return ModelConfig(
-        name=cfg["name"], family="dense",
-        n_layers=cfg["num_hidden_layers"], d_model=cfg["hidden_size"],
-        n_heads=cfg["num_attention_heads"],
-        n_kv_heads=cfg["num_key_value_heads"], head_dim=cfg["head_dim"],
-        d_ff=cfg["intermediate_size"], vocab_size=cfg["vocab_size"],
-        act=ACTS[cfg["mlp"]], rope_theta=float(cfg["rope_theta"]),
-        rotary_pct=float(cfg["partial_rotary_factor"]),
-        norm_eps=float(cfg["norm_eps"]),
-        # the program's tied path also scales the embedding by sqrt(d), as
-        # Gemma does and neither model here; a tied model's output
-        # projection comes in as ``lm_head``, the embedding's transpose
-        tie_embeddings=False,
-        compute_dtype=cfg["torch_dtype"],
-        kv_cache_dtype=cfg.get("kv_cache_dtype", ""),
-        gqa_mode=PAIRINGS[cfg["kv_head_pairing"]])
-
-
 @dataclasses.dataclass
 class TurnLog:
     """What the backend saw of one turn."""
@@ -147,8 +123,10 @@ class Stack:
                 raise RuntimeError(f"AgentRM thread {t.name} did not stop")
 
 
-def build(conf: Dict, mix: Dict, raw: Dict, device, *, clock) -> Stack:
-    cfg = port_config(conf)
+def build(conf: Dict, cfg: ModelConfig, mix: Dict, raw: Dict, device, *,
+          clock) -> Stack:
+    """``cfg``: the program's ``ModelConfig`` for ``conf``, as its kind
+    maps it."""
     params = prepare_params(raw, cfg, device)
     e = conf["engine"]
     engine = PagedInferenceEngine(

@@ -6,8 +6,8 @@ import types
 
 import pytest
 
-from agentbench import flops
-from agentbench.reference.model import dims
+from agentbench.kinds import dense
+from agentbench.kinds.dense import dims
 from agentbench.spec import PACKAGE, Cell
 from agentbench.view import RunView, quantile
 
@@ -20,8 +20,9 @@ def turn(due, stamps, delivered="tok:1"):
 
 def view(turns, start=0.0, end=10.0, steps=()):
     w = types.SimpleNamespace(start=start, end=end, turns=turns)
-    return RunView(dims={}, window=w, steps=list(steps), setup_s=1.0,
-                   device_name="cpu", max_batch=4, kv_itemsize=2)
+    return RunView(dims={}, kind=dense, window=w, steps=list(steps),
+                   setup_s=1.0, device_name="cpu", max_batch=4,
+                   kv_itemsize=2)
 
 
 def read(metric, run):
@@ -93,41 +94,44 @@ def conf(name):
 
 
 def test_flops_per_token_by_hand():
-    from agentbench.weights import n_params
+    """The dense kind's counts, reached through the kind a cell loads."""
+    kind = Cell("sc2-agent-fleet").kind
+    assert kind.__file__ == str(PACKAGE / "kinds" / "dense.py")
     for name in ("starcoder2-7b", "chatglm3-6b"):
-        assert n_params(dims(conf(name))) == conf(name)["params"] == \
+        assert kind.n_params(dims(conf(name))) == conf(name)["params"] == \
             conf(name)["weight_bytes"] // 2
     sc2 = dims(conf("starcoder2-7b"))
     # q 4608x4608, k and v 4608x512 each, o 4608x4608, MLP up and down
     # 4608x18432: 217,055,232 weights a layer, 2 FLOPs each, 32 layers
-    assert flops.linear_flops_per_token(sc2) == 2 * 32 * 217_055_232
+    assert kind.linear_flops_per_token(sc2) == 2 * 32 * 217_055_232
     glm = dims(conf("chatglm3-6b"))
     # q, o 4096x4096; k, v 4096x256; gate, up, down 4096x13696
-    assert flops.linear_flops_per_token(glm) == 2 * 28 * (
+    assert kind.linear_flops_per_token(glm) == 2 * 28 * (
         2 * 4096 * 4096 + 2 * 4096 * 256 + 3 * 4096 * 13696)
-    assert flops.unembed_flops(sc2) == 2 * 4608 * 49152
+    assert kind.unembed_flops(sc2) == 2 * 4608 * 49152
     # one token after 1000 cached: 1001 keys, QK and PV 2*128 FLOPs a key
     # for each of 36 heads, 32 layers
-    assert flops.attention_flops(sc2, 1000, 1) == 32 * 36 * 1001 * 4 * 128
+    assert kind.attention_flops(sc2, 1000, 1) == 32 * 36 * 1001 * 4 * 128
     # three tokens from empty: 1 + 2 + 3 keys
-    assert flops.attention_flops(sc2, 0, 3) == 32 * 36 * 6 * 4 * 128
-    assert flops.step_flops(sc2, [(1000, 1, True), (0, 3, False)]) == (
-        4 * flops.linear_flops_per_token(sc2) + flops.unembed_flops(sc2)
-        + flops.attention_flops(sc2, 1000, 1)
-        + flops.attention_flops(sc2, 0, 3))
+    assert kind.attention_flops(sc2, 0, 3) == 32 * 36 * 6 * 4 * 128
+    assert kind.step_flops(sc2, [(1000, 1, True), (0, 3, False)]) == (
+        4 * kind.linear_flops_per_token(sc2) + kind.unembed_flops(sc2)
+        + kind.attention_flops(sc2, 1000, 1)
+        + kind.attention_flops(sc2, 0, 3))
 
 
 def test_k1_bytes_match_the_page_tables():
     """Two rows of a decode step, by hand, and by counting the pages'
     live slots of an engine at smoke size."""
+    kind = Cell("glm3-longctx-decode").kind
     glm = dims(conf("chatglm3-6b"))
     per_key = 2 * 2 * 128 * 2          # K and V, 2 KV heads, bf16
     per_row = 2 * 32 * 128 * 2         # q and out, 32 heads, bf16
-    assert flops.decode_attention_bytes(glm, [10, 4095]) == 28 * (
+    assert kind.decode_attention_bytes(glm, [10, 4095]) == 28 * (
         2 * per_row + (11 + 4096) * per_key)
-    assert flops.kv_bytes_per_token(glm) == 28 * per_key == \
+    assert kind.kv_bytes_per_token(glm) == 28 * per_key == \
         conf("chatglm3-6b")["kv_bytes_per_token"]
-    assert flops.kv_bytes_per_token(dims(conf("starcoder2-7b"))) == \
+    assert kind.kv_bytes_per_token(dims(conf("starcoder2-7b"))) == \
         conf("starcoder2-7b")["kv_bytes_per_token"]
 
     import torch
@@ -138,9 +142,10 @@ def test_k1_bytes_match_the_page_tables():
     c = dict(conf("chatglm3-6b"), **{k: v for k, v in TINY.items()
                                      if k != "engine"})
     m = dims(c)
-    cfg = stack.port_config(c)
+    cfg = kind.port_config(c)
     eng = PagedInferenceEngine(cfg, prepare_params(
-        weights.draw(m, 1, "cpu", torch.bfloat16), cfg, "cpu"),
+        weights.draw(m, kind.layer_groups(m), 1, "cpu", torch.bfloat16),
+        cfg, "cpu"),
         num_blocks=64, block_size=16, max_batch=4, max_len=256,
         token_budget=32, device="cpu")
     be = stack.TimedBackend(eng, clock=lambda: 0.0)
@@ -155,7 +160,7 @@ def test_k1_bytes_match_the_page_tables():
     assert [ctx for ctx, _, _ in s.rows] == live
     slots = sum(r.table.num_tokens for r in eng.active.values())
     assert slots == sum(ctx + 1 for ctx, _, _ in s.rows)
-    assert flops.decode_attention_bytes(m, [ctx for ctx, _, _ in s.rows]) \
+    assert kind.decode_attention_bytes(m, [ctx for ctx, _, _ in s.rows]) \
         == m["L"] * (len(s.rows) * 2 * m["hq"] * m["hd"] * 2
                      + slots * 2 * m["hkv"] * m["hd"] * 2)
 
@@ -188,3 +193,33 @@ def test_no_card_no_result(capsys):
     assert run.main(["--workload", "sc2-agent-fleet", "--seed", "1",
                      "--seconds", "1", "--trace", "0"]) == 2
     assert capsys.readouterr().out == ""
+
+
+def test_each_steps_device_time_by_kernel():
+    """A hand-made trace: two steps, K1's kernels among others, one kernel
+    between the steps. Each step keeps every kernel's seconds by name; its
+    K1 seconds are what the reading summed before it kept them by name (K1's
+    kernels among those whose start lies in the step's span, in order)."""
+    from agentbench import trace
+    split = "void (anonymous namespace)::paged_split_kernel<bf16>(...)"
+    merge = "void (anonymous namespace)::paged_merge_kernel<bf16>(...)"
+    tc = "void (anonymous namespace)::paged_tc_kernel<128, 0, 0>(...)"
+    gemm = "nvjet_tst_64x16_64x16_4x1_v_bz_NNT"
+    ops = [(gemm, 0.125, 0.25), (split, 0.25, 0.375), (merge, 0.375, 0.5),
+           (split, 0.5, 0.5625), (merge, 0.5625, 0.625),
+           (gemm, 1.0, 1.0625),                       # between the steps
+           (gemm, 1.125, 1.375), (tc, 1.375, 1.75), (gemm, 1.75, 1.8125)]
+    spans = [(7, 0.0, 0.75), (8, 1.125, 1.9375)]
+    got = trace.reduce(ops, spans, 0.0, 2.0)
+    assert got.kernel_s == {7: {gemm: 0.125, split: 0.1875, merge: 0.1875},
+                            8: {gemm: 0.3125, tc: 0.375}}
+    before = {seq: 0.0 for seq, _, _ in spans}
+    for name, a, b in ops:
+        seq = next((s for s, lo, hi in spans if lo <= a <= hi), None)
+        if seq is not None and any(k in name for k in trace.K1_NAMES):
+            before[seq] += b - a
+    assert got.k1_s == before == {7: 0.375, 8: 0.375}
+    assert got.seconds(8, [gemm]) == 0.3125
+    assert got.steps == [7, 8]
+    assert got.busy_s == 1.25 and got.window_s == 2.0
+    assert got.attributed == 1.1875 / 1.25

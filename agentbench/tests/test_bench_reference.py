@@ -7,7 +7,8 @@ import json
 import pytest
 import torch
 
-from agentbench import stack, weights
+from agentbench import weights
+from agentbench.kinds import dense
 from agentbench.reference import model as ref
 from agentbench.spec import PACKAGE
 from agentbench.tests.tiny import TINY
@@ -31,8 +32,9 @@ def conf(request):
 
 def test_reference_logits_match_the_port_forward(conf):
     m = ref.dims(conf)
-    raw = weights.draw(m, 123, "cpu", torch.float32)
-    cfg = stack.port_config(conf)
+    raw = weights.draw(m, dense.layer_groups(m), 123, "cpu",
+                       torch.float32)
+    cfg = dense.port_config(conf)
     params = prepare_params(raw, cfg, "cpu")
     toks = torch.randint(1, m["V"], (1, 40), generator=torch.Generator()
                          .manual_seed(5))
@@ -47,8 +49,9 @@ def test_reference_kv_matches_the_megastep_pages(conf):
     pages read as the check reads them against the reference's K/V."""
     from agentbench import check
     m = ref.dims(conf)
-    raw = weights.draw(m, 7, "cpu", torch.float32)
-    cfg = stack.port_config(conf)
+    raw = weights.draw(m, dense.layer_groups(m), 7, "cpu",
+                       torch.float32)
+    cfg = dense.port_config(conf)
     eng = PagedInferenceEngine(cfg, prepare_params(raw, cfg, "cpu"),
                                num_blocks=64, block_size=16, max_batch=4,
                                max_len=256, token_budget=32, device="cpu")
@@ -87,7 +90,8 @@ def test_kv_pairings():
 def test_a_sliding_window_changes_only_what_lies_beyond_it():
     conf = tiny_conf("starcoder2-7b", torch_dtype="float32")
     m = ref.dims(conf)
-    raw = weights.draw(m, 3, "cpu", torch.float32)
+    raw = weights.draw(m, dense.layer_groups(m), 3, "cpu",
+                       torch.float32)
     toks = torch.randint(1, m["V"], (40,), generator=torch.Generator()
                          .manual_seed(2))
     full = ref.run(dict(conf, sliding_window=None), raw, toks,

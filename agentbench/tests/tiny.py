@@ -48,17 +48,23 @@ def make_tree(dest: Path) -> Path:
     """``dest`` holding the benchmark's folder and BENCHMARK.json, plus
     ``tiny-sc2`` / ``tiny-glm3`` configurations (the two models' code paths
     at smoke widths), ``tiny-sc2-window`` (``tiny-sc2`` with a sliding
-    window of ``WINDOW``) and the cells ``tiny-sc2-fleet``,
-    ``tiny-glm3-fleet``, ``tiny-sc2-decode``, ``tiny-glm3-decode``,
-    ``tiny-sc2-window-decode``."""
+    window of ``WINDOW``), ``tiny-glm3-two-groups`` (``tiny-glm3`` of the
+    kind ``two_groups``, ``kind_two_groups.py`` copied into ``kinds/``)
+    and the cells ``tiny-sc2-fleet``, ``tiny-glm3-fleet``,
+    ``tiny-sc2-decode``, ``tiny-glm3-decode``, ``tiny-sc2-window-decode``,
+    ``tiny-glm3-two-groups-decode``."""
     shutil.copytree(PACKAGE, dest / "agentbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     folder = dest / "agentbench"
+    shutil.copy(PACKAGE / "tests" / "kind_two_groups.py",
+                folder / "kinds" / "two_groups.py")
     for name, real, over in (("tiny-sc2", "starcoder2-7b", {}),
                              ("tiny-glm3", "chatglm3-6b", {}),
                              ("tiny-sc2-window", "starcoder2-7b",
-                              {"sliding_window": WINDOW})):
+                              {"sliding_window": WINDOW}),
+                             ("tiny-glm3-two-groups", "chatglm3-6b",
+                              {"kind": "two_groups"})):
         conf = json.loads((folder / "configs" / f"{real}.json").read_text())
         engine = dict(conf["engine"], **TINY["engine"])
         conf.update(TINY, name=name, engine=engine, **over)
@@ -73,7 +79,9 @@ def make_tree(dest: Path) -> Path:
                             ("tiny-sc2-decode", "tiny-sc2", "tiny-decode"),
                             ("tiny-glm3-decode", "tiny-glm3", "tiny-decode"),
                             ("tiny-sc2-window-decode", "tiny-sc2-window",
-                             "tiny-decode")):
+                             "tiny-decode"),
+                            ("tiny-glm3-two-groups-decode",
+                             "tiny-glm3-two-groups", "tiny-decode")):
         _dump(folder / "cells" / f"{cell}.json",
               {"check": {"sessions": 2, "served_tokens": 20},
                "limits": LIMITS})

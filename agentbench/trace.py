@@ -15,16 +15,18 @@ then gives the seconds the device was busy (the union of its operations'
 intervals), the sub-window's length, the device operations that took most
 time, the idle gaps labelled by what the host was doing (inside a step:
 before its first kernel, between kernels, after its last; or between
-steps), and each traced step's K1 device seconds. A kernel belongs to the
-step whose host span holds its start: a step ends once its ids are on the
-host, so its kernels have run by then.
+steps), and each traced step's device seconds by kernel name, from which a
+roofline reader takes its kernel's (K1's: ``Reading.k1_s``). A kernel
+belongs to the step whose host span holds its start: a step ends once its
+ids are on the host, so its kernels have run by then.
 """
 from __future__ import annotations
 
 import bisect
 import dataclasses
+import functools
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -96,9 +98,21 @@ class Reading:
     window_s: float
     device_ops: List[Tuple[str, float]]
     idle_gaps: List[Tuple[str, float]]
-    k1_s: Dict[int, float]          # step seq -> K1 device seconds
+    # step seq -> {kernel name: device seconds}, every traced step
+    kernel_s: Dict[int, Dict[str, float]]
     steps: List[int]                # the traced steps' seqs
     attributed: float               # share of device time inside steps
+
+    def seconds(self, seq: int, names: Iterable[str]) -> float:
+        """Step ``seq``'s device seconds in kernels whose name holds one
+        of ``names``."""
+        return sum((t for k, t in self.kernel_s.get(seq, {}).items()
+                    if any(n in k for n in names)), 0.0)
+
+    @functools.cached_property
+    def k1_s(self) -> Dict[int, float]:
+        """step seq -> K1 device seconds."""
+        return {seq: self.seconds(seq, K1_NAMES) for seq in self.kernel_s}
 
 
 def _union(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
@@ -149,39 +163,48 @@ def read(tracer: Tracer, steps: List) -> Optional[Reading]:
     def on_trace(t: float) -> float:
         return (wall_ns + (t - perf) * 1e9 - base_ns) / 1e9
 
-    lo, hi = on_trace(tracer.t_start), on_trace(tracer.t_stop)
     traced = [s for s in steps if tracer.t_start <= s.t0
               and s.t1 <= tracer.t_stop]
-    spans = _Spans([(s.seq, on_trace(s.t0), on_trace(s.t1))
-                    for s in traced])
     ops = [(e.name, e.time_range.start / 1e6, e.time_range.end / 1e6)
            for e in tracer.prof.events() if e.device_type == DeviceType.CUDA]
+    return reduce(ops, [(s.seq, on_trace(s.t0), on_trace(s.t1))
+                        for s in traced],
+                  on_trace(tracer.t_start), on_trace(tracer.t_stop))
+
+
+def reduce(ops: List[Tuple[str, float, float]],
+           spans: List[Tuple[int, float, float]], lo: float,
+           hi: float) -> Optional[Reading]:
+    """The reading of device operations ``ops`` (name, start, end) and the
+    traced steps' host ``spans`` (seq, start, end) in the sub-window
+    [lo, hi], all in seconds on the trace's clock. None where no operation
+    ran in it."""
     busy = _union([(max(a, lo), min(b, hi)) for _, a, b in ops
                    if b > lo and a < hi])
     if not busy:
         return None
+    found = _Spans(spans)
     by_name: Dict[str, float] = {}
     first: Dict[int, float] = {}
     last: Dict[int, float] = {}
-    k1: Dict[int, float] = {s.seq: 0.0 for s in traced}
+    kernel_s: Dict[int, Dict[str, float]] = {seq: {} for seq, _, _ in spans}
     inside = total = 0.0
     for name, a, b in ops:
         by_name[name] = by_name.get(name, 0.0) + (b - a)
         total += b - a
-        seq = spans.at(a)
+        seq = found.at(a)
         if seq is None:
             continue
         inside += b - a
         first[seq] = min(first.get(seq, a), a)
         last[seq] = max(last.get(seq, b), b)
-        if any(k in name for k in K1_NAMES):
-            k1[seq] += b - a
+        kernel_s[seq][name] = kernel_s[seq].get(name, 0.0) + (b - a)
     gaps: Dict[str, float] = {}
     longest: Dict[str, float] = {}
     edges = [(lo, lo)] + busy + [(hi, hi)]
     for (_, a), (b, _) in zip(edges, edges[1:]):
         if b > a:
-            lab = _label(a, b, spans, first, last)
+            lab = _label(a, b, found, first, last)
             gaps[lab] = gaps.get(lab, 0.0) + (b - a)
             longest[lab] = max(longest.get(lab, 0.0), b - a)
     idle = sorted(gaps.items(), key=lambda kv: -kv[1])
@@ -190,6 +213,6 @@ def read(tracer: Tracer, steps: List) -> Optional[Reading]:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return Reading(busy_s=sum(b - a for a, b in busy), window_s=hi - lo,
                    device_ops=[(n[:120], s) for n, s in top],
-                   idle_gaps=idle[:10], k1_s=k1,
-                   steps=[s.seq for s in traced],
+                   idle_gaps=idle[:10], kernel_s=kernel_s,
+                   steps=[seq for seq, _, _ in spans],
                    attributed=inside / total if total else 0.0)

@@ -27,7 +27,8 @@ def quantile(values: List[float], q: float) -> Optional[float]:
 
 @dataclasses.dataclass
 class RunView:
-    dims: Dict
+    dims: Dict                      # the kind's ``dims`` of the config
+    kind: object                    # the module ``kinds/<kind>.py``
     window: object                  # client.Window
     steps: List                     # stack.StepLog, every step of the run
     setup_s: float
@@ -89,5 +90,5 @@ class RunView:
         pk = flops.peaks(self.device_name)
         if not steps or pk is None:
             return None
-        work = sum(flops.step_flops(self.dims, s.rows) for s in steps)
+        work = sum(self.kind.step_flops(self.dims, s.rows) for s in steps)
         return 100.0 * work / (sum(s.t1 - s.t0 for s in steps) * pk[0])

@@ -1,45 +1,24 @@
 """The raw weights of a run, drawn from the seed on the device.
 
-One ``torch.Generator`` on the device, one ``randn`` call per kind of leaf
-with every layer's copy stacked on a leading axis, in the dtype the model
-is served in. Matrices are scaled by ``1 / sqrt(fan_in)`` (the embedding
-by 0.02), norm scales are small draws around 0 (the norm multiplies by
-``1 + w``). A tied model draws no output projection: its ``lm_head`` is
-the embedding's transpose, a view of the same tensor, and its embedding is
-drawn at the output projection's scale, ``1 / sqrt(d)``, so that its
-logits spread as an untied model's do. The per-layer leaves are views of the stacked tensors, laid
-out as the program's ``prepare_params`` takes them; the reference reads
-the same tensors.
+One ``torch.Generator`` on the device, one ``randn`` call per leaf of each
+of the kind's layer groups (``layer_groups``) with the group's layers
+stacked on a leading axis, in the dtype the model is served in, each
+scaled as the kind states. The embedding is scaled by 0.02 and the final
+norm is a small draw around 0. A tied model draws no output projection:
+its ``lm_head`` is the embedding's transpose, a view of the same tensor,
+and its embedding is drawn at the output projection's scale,
+``1 / sqrt(d)``, so that its logits spread as an untied model's do. The
+per-layer leaves are views of the stacked tensors, laid out as the
+program's ``prepare_params`` takes them; the reference reads the same
+tensors.
 """
 from __future__ import annotations
 
-import math
-from typing import Dict, List, Tuple
+from typing import Dict, List
 
 import torch
 
 NORM_SCALE = 0.1
-
-
-def layer_leaves(m: Dict) -> Dict[str, Tuple[Tuple[int, ...], float]]:
-    """name -> (one layer's shape, scale) for ``reference.model.dims``."""
-    d, hq, hkv, hd, ff = m["d"], m["hq"], m["hkv"], m["hd"], m["ff"]
-    out = {"attn_norm": ((d,), NORM_SCALE), "mlp_norm": ((d,), NORM_SCALE),
-           "attn.wq": ((d, hq * hd), d ** -0.5),
-           "attn.wk": ((d, hkv * hd), d ** -0.5),
-           "attn.wv": ((d, hkv * hd), d ** -0.5),
-           "attn.wo": ((hq * hd, d), (hq * hd) ** -0.5),
-           "mlp.w_up": ((d, ff), d ** -0.5),
-           "mlp.w_down": ((ff, d), ff ** -0.5)}
-    if m["mlp"] == "swiglu":
-        out["mlp.w_gate"] = ((d, ff), d ** -0.5)
-    return out
-
-
-def n_params(m: Dict) -> int:
-    per_layer = sum(math.prod(s) for s, _ in layer_leaves(m).values())
-    heads = 1 if m["tied"] else 2
-    return m["L"] * per_layer + heads * m["V"] * m["d"] + m["d"]
 
 
 def _draw(gen, shape, scale, device, dtype) -> torch.Tensor:
@@ -47,8 +26,10 @@ def _draw(gen, shape, scale, device, dtype) -> torch.Tensor:
     return x.mul_(scale)
 
 
-def draw(m: Dict, seed: int, device, dtype=torch.bfloat16) -> Dict:
-    """{"embed", "final_norm", "lm_head", "layers": [per-layer dicts]}."""
+def draw(m: Dict, groups: List, seed: int, device,
+         dtype=torch.bfloat16) -> Dict:
+    """{"embed", "final_norm", "lm_head", "layers": [per-layer dicts]};
+    ``groups`` is the kind's ``layer_groups(m)``."""
     gen = torch.Generator(device=device).manual_seed(int(seed))
     embed = m["d"] ** -0.5 if m["tied"] else 0.02
     raw = {"embed": _draw(gen, (m["V"], m["d"]), embed, device, dtype),
@@ -56,14 +37,15 @@ def draw(m: Dict, seed: int, device, dtype=torch.bfloat16) -> Dict:
     raw["lm_head"] = (raw["embed"].t() if m["tied"] else
                       _draw(gen, (m["d"], m["V"]), m["d"] ** -0.5, device,
                             dtype))
-    layers: List[Dict] = [{"attn": {}, "mlp": {}} for _ in range(m["L"])]
-    for name, (shape, scale) in layer_leaves(m).items():
-        stacked = _draw(gen, (m["L"], *shape), scale, device, dtype)
-        for li, lay in enumerate(layers):
-            if "." in name:
-                group, leaf = name.split(".")
-                lay[group][leaf] = stacked[li]
-            else:
-                lay[name] = stacked[li]
+    layers: List[Dict] = [{} for _ in range(m["L"])]
+    for idx, leaves in groups:
+        for name, (shape, scale) in leaves.items():
+            stacked = _draw(gen, (len(idx), *shape), scale, device, dtype)
+            *path, leaf = name.split(".")
+            for j, li in enumerate(idx):
+                lay = layers[li]
+                for key in path:
+                    lay = lay.setdefault(key, {})
+                lay[leaf] = stacked[j]
     raw["layers"] = layers
     return raw
