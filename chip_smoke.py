@@ -21,7 +21,8 @@ Phases, each printing one JSON line (several for the kernel cases):
                  and its tensor-parallel shards' (tp 2: hq=18, hkv=2;
                  tp 4: hq=9, hkv=1); bit for bit against its gathered-view twin
                  and on a second call; each row gives the kernel's route
-                 (split decode at C=1, tensor cores at bf16 C>1, the walk
+                 (split decode at C=1: on the tensor cores in bf16, the
+                 CUDA cores in f32; tensor cores at bf16 C>1, the walk
                  at f32 C>1) and its key ranges, and is held to the walk
                  it runs at a tighter tolerance; at C=1, K2 at
                  lens = cache_lens + 1 equals it bit for bit on the rows
@@ -575,7 +576,8 @@ def k1_cases(torch, flush):
         walk = ref.paged_prefill_attention_tiled_ref(
             q.float(), k.float(), v.float(), lens, vals, pt,
             split=plan["split"], pairing="g_major",
-            p_dtype=dtype if plan["route"] == "tensor_cores" else None)
+            p_dtype=dtype if plan["route"] in ("tensor_cores", "split_mma")
+            else None)
         rows.append(_walk_check(torch, "K1", row, out, walk))
     return rows
 
@@ -620,7 +622,8 @@ def k2_cases(torch, flush):
             lambda o: o.transpose(1, 2), _bound(nbytes, flops, dname))
         walk = ref.paged_attention_split_ref(
             q[:, 0].float(), k.float(), v.float(), lens, pt,
-            split=plan["split"], pairing="g_major")
+            split=plan["split"], pairing="g_major",
+            p_dtype=dtype if plan["route"] == "split_mma" else None)
         rows.append(_walk_check(torch, "K2", row, out[:, 0], walk))
     return rows
 

@@ -1,7 +1,10 @@
 // Split-K decode attention for NVIDIA Hopper (sm_90a): the two passes that
 // the contiguous-cache decode (K4, decode_attention/csrc/decode_attention.cu)
-// and the paged decode (K2, and K1 at C = 1,
-// paged_attention/csrc/paged_prefill_attention.cu) share. Each .cu file
+// and the paged decode at float32 q (K2, and K1 at C = 1,
+// paged_attention/csrc/paged_prefill_attention.cu) share. The paged decode
+// at bf16 q runs its own pass 1 on the tensor cores
+// (paged_split_kernel_mma, which keeps K/V tiles in shared memory once for
+// all g heads of a kv head) and this file's ``merge``. Each .cu file
 // wraps them in __global__ kernels of its own names, so a profile tells K4
 // from the paged decode; K2 and K1 at C = 1 run the same kernels (that is
 // what makes them equal bit for bit), so a profile cannot tell those two
@@ -30,9 +33,9 @@
 // exactly in registers (hop::fp8x2_to_float2). The units, their order, the
 // threads that share an output unit and every product and sum are those
 // of the same call on K/V upcast to T, so it gives that call's bits. No atomics, so every call gives the same bits.
-// Scores are in natural units (expf) for the decode pass 1, or in log2
-// units (exp2f) for the tensor-core paged prefill, which reuses ``merge``
-// with its M rows as the rows.
+// Scores are in natural units (expf) for this pass 1, or in log2 units
+// (exp2f) for the paged kernels' tensor-core passes (the prefill's M rows,
+// the bf16 decode's heads), which reuse ``merge``.
 
 #pragma once
 
@@ -318,15 +321,18 @@ __device__ __forceinline__ void partial(const T* __restrict__ qb, int n,
 // Pass 2 for one output row (row = blockIdx.x of R rows, batch row
 // blockIdx.y): the partials' weights exp(m_s - M) (exp2 where LOG2, the
 // scores' units) in shared memory, zero for empty ranges (l = 0), then each
-// output column summed over the ranges in order. Needs 2 * n_split floats
-// of dynamic shared memory (sW). The decodes load every partial's o (no
-// load waits on its weight); SPARSE loads only those of non-empty ranges,
-// for the paged prefill's M rows, where most rows leave most ranges empty.
+// output column summed over the ranges in order. The row's partials are
+// the first ``count`` of its n_split (all of them where count < 0). Needs
+// 2 * n_split floats of dynamic shared memory (sW). This file's decodes
+// load every partial's o (no load waits on its weight); SPARSE loads only
+// those of non-empty ranges, for the paged tensor-core passes, where a
+// row may leave most ranges empty.
 template <typename T, bool LOG2, bool SPARSE = false>
 __device__ __forceinline__ void merge(const float* __restrict__ ws_o,
                                       const float* __restrict__ ws_ml,
                                       T* __restrict__ out, int R, int dv,
-                                      int n_split, float* sW) {
+                                      int n_split, float* sW,
+                                      int count = -1) {
   __shared__ float sRed[kMergeThreads / 32];
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -334,8 +340,9 @@ __device__ __forceinline__ void merge(const float* __restrict__ ws_o,
   const size_t p0 = ((size_t)b * R + h) * n_split;
   const float* ml = ws_ml + 2 * p0;
   float* sL = sW + n_split;
+  if (count < 0) count = n_split;
   float M = -INFINITY;
-  for (int s = tid; s < n_split; s += kMergeThreads) {
+  for (int s = tid; s < count; s += kMergeThreads) {
     const float m = ml[2 * s];
     const float l = ml[2 * s + 1];
     sW[s] = m;
@@ -348,17 +355,17 @@ __device__ __forceinline__ void merge(const float* __restrict__ ws_o,
   M = sRed[0];
 #pragma unroll
   for (int w = 1; w < kMergeThreads / 32; ++w) M = fmaxf(M, sRed[w]);
-  for (int s = tid; s < n_split; s += kMergeThreads)
+  for (int s = tid; s < count; s += kMergeThreads)
     sW[s] = sL[s] > 0.f ? (LOG2 ? exp2f(sW[s] - M) : expf(sW[s] - M))
                         : 0.f;  // empty ranges wrote no o
   __syncthreads();
   float L = 0.f;
-  for (int s = 0; s < n_split; ++s) L += sW[s] * sL[s];
+  for (int s = 0; s < count; ++s) L += sW[s] * sL[s];
   const float inv = 1.f / fmaxf(L, 1e-30f);
   for (int e = tid; e < dv; e += kMergeThreads) {
     float acc = 0.f;
 #pragma unroll 4
-    for (int s = 0; s < n_split; ++s) {
+    for (int s = 0; s < count; ++s) {
       const float w = sW[s];
       if (SPARSE) {
         if (w != 0.f) acc += w * ws_o[(p0 + s) * dv + e];

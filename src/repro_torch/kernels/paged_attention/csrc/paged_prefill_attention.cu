@@ -19,21 +19,39 @@
 // Their products are a few GFLOP at most, against 989 TFLOP/s of bf16
 // tensor cores. So every SM must be busy, K/V pages must be read about
 // once rather than once per query row, and the products must not run as
-// per-key warp reductions on the CUDA cores. Three kernels, chosen by shape:
+// per-key warp reductions on the CUDA cores. Four routes, chosen by shape
+// and dtype:
 //
-//   - C = 1 (K2 always; K1 at C = 1, every decode step of the megastep),
-//     split-K over the pages (paged_split_kernel, paged_merge_kernel): the
-//     passes of ../../csrc/split_k.cuh, as K4 runs them over a contiguous
-//     cache. Pass 1's grid is (n_split, hkv, b): a block owns one range of
-//     whole pages for the g q-heads of one kv head, reads the range's page
-//     ids once into shared memory, stages the rows below the row's length
-//     with 16-byte cp.async, and writes an f32 partial (m, l, o[dv]) per
-//     head; a range at or past the length writes m = -inf, l = 0. Pass 2
-//     merges the partials in range order, with no atomics. K1 at C = 1 is
+//   - C = 1, bf16 (K2 always; K1 at C = 1, every decode step of the
+//     megastep): split-K over the pages on the tensor cores
+//     (paged_split_kernel_mma, then paged_merge_kernel_mma). Pass 1's grid
+//     is (n_split x m_tiles, hkv, b): a block owns one range of the row's
+//     keys for one M tile of the kv head's g q-heads (16 heads, zero rows
+//     past g; g > 16 takes ceil(g / 16) tiles), so each K/V tile read from
+//     shared memory serves every head of the group. n_split comes from the
+//     shapes (``decode_plan`` in ../ops.py: about two blocks a SM), the
+//     ranges from each row's own length on the device: its 64-key tiles
+//     cut into n_split ranges of equal count, so the work and the partials
+//     follow the live keys while a CUDA graph keeps one grid. A range's page
+//     ids are read once into shared memory; its key tiles stream through a
+//     three-stage ring of 16-byte cp.async while each warp computes
+//     S = Q.K^T and O += P.V over its 16 keys of a tile as mma.sync
+//     m16n8k16 bf16 products with f32 accumulators, (m, l, O) in registers
+//     across tiles and P rounded to bf16 for P.V. The four warps' (m, l, o)
+//     are merged in warp order, and the range's f32 partial (m in log2
+//     units, l, unnormalised o) goes to pass 2, which merges the row's
+//     non-empty partials in range order with no atomics. K1 at C = 1 is
 //     the same call with length max(cache_lens + valids, 1) (position 0
 //     sees k <= cache_lens, and that length never exceeds cache_lens + 1),
 //     so with lens = cache_lens + 1 K2 equals K1 bit for bit on every row
 //     with valids = 1.
+//   - C = 1, float32 (paged_split_kernel, paged_merge_kernel): the
+//     CUDA-core passes of ../../csrc/split_k.cuh, as K4 runs them over a
+//     contiguous cache, exact float32 for the parity runs: ranges of
+//     ``split`` keys from the shapes alone (a range at or past the length
+//     writes m = -inf, l = 0), the range's page ids read once, rows below
+//     the row's length staged with 16-byte cp.async, an f32 partial per
+//     head, merged in range order.
 //   - C > 1, bf16 (paged_tc_kernel): K3's FlashAttention-2 tiles
 //     (flash_attention.cu) over pool pages. A block is one warpgroup owning
 //     a 64-row M tile of one (row b, kv head): chunk positions x the g
@@ -67,11 +85,12 @@
 // under either q, as the Pallas kernels take any float K/V and upcast it in
 // the body (kernel.py:62, :72, :105, :116). Each route then reads the e4m3
 // bytes, half a bf16 pool's, and widens every element exactly
-// (../../csrc/hopper.cuh): the split decode and the walk as they read each
-// element, in the order of the same call on the pools upcast to q's dtype;
-// the tensor-core tiles, whose ldmatrix cannot widen 8-bit data, stage a
-// tile's bytes by cp.async into a two-stage byte ring and convert them into
-// one bf16 tile behind a __syncthreads, leaving the mma.sync loop as it is.
+// (../../csrc/hopper.cuh): the f32 split decode and the walk as they read
+// each element, in the order of the same call on the pools upcast to q's
+// dtype; the tensor-core routes, whose ldmatrix cannot widen 8-bit data,
+// stage a tile's bytes by cp.async into a byte ring (two stages at C > 1,
+// three at C = 1) and convert them into one bf16 tile behind a
+// __syncthreads, leaving the mma.sync loop as it is.
 // Every route so gives the bits of the same call on the upcast pools.
 //
 // Plain C interface (loaded with ctypes); launches on the caller's stream
@@ -701,6 +720,444 @@ cudaError_t launch_tc(const void* q, const void* k_pool, const void* v_pool,
                                   stream);
 }
 
+// ------------------------- bf16, C = 1: the split decode on tensor cores
+
+constexpr int kMmaRows = 16;    // q-heads per M tile: one m16 tile
+constexpr int kMmaKeys = 64;    // keys per tile, 16 per warp
+constexpr int kMmaStages = 3;   // depth of the tile ring
+
+// Shared memory of paged_split_kernel_mma, in bytes: the M tile's Q rows,
+// the ring of bf16 K and V tiles (one tile for e4m3 pools, whose ring holds
+// the bytes), then a range's page ids. Once a range is walked, the warps'
+// (m, l, o) for the block's merge lie over the start.
+struct MmaLayout {
+  size_t k_off, v_off, b8_off, pid_off, total;
+  __host__ __device__ MmaLayout(int d16, int dv16, int dv, bool fp8_kv,
+                                int pages) {
+    const int stages = fp8_kv ? 1 : kMmaStages;
+    k_off = (size_t)kMmaRows * (d16 + 8) * sizeof(bf16);
+    v_off = k_off + (size_t)stages * kMmaKeys * (d16 + 8) * sizeof(bf16);
+    b8_off = v_off + (size_t)stages * kMmaKeys * (dv16 + 8) * sizeof(bf16);
+    const size_t ring = b8_off + (fp8_kv ? (size_t)kMmaStages * kMmaKeys *
+                                               (d16 + dv16) : 0);
+    const size_t merge = (size_t)4 * kMmaRows * (dv + 2) * sizeof(float);
+    pid_off = ((ring > merge ? ring : merge) + 15) & ~(size_t)15;
+    total = pid_off + (size_t)pages * sizeof(int);
+  }
+};
+
+// Row b's keys: max(lens + valids, 1) where valids is given (K1 at C = 1),
+// else lens (K2), clamped to [0, S].
+__device__ __forceinline__ int row_len(const int* lens, const int* valids,
+                                       int b, int S) {
+  const int want = valids ? max(lens[b] + valids[b], 1) : lens[b];
+  return max(min(want, S), 0);
+}
+
+// The 64-key tiles of each of a row's ranges: its ceil(len / 64) tiles
+// over n_split ranges; ranges 0 .. ceil(tiles / per) - 1 hold keys.
+__device__ __forceinline__ int row_cut(int len, int n_split) {
+  return ((len + kMmaKeys - 1) / kMmaKeys + n_split - 1) / n_split;
+}
+
+// Grid (n_split * m_tiles, hkv, b): a block owns one M tile of the kv
+// head's g q-heads (heads 16 mt .. 16 mt + 15, zero rows past g) and one of
+// row b's n_split key ranges. The ranges come from the row's own length on
+// the device: its ceil(len / 64) key tiles cut into n_split ranges of
+// ceil(tiles / n_split) tiles (``row_cut``), so the grid is fixed by the
+// shapes (a CUDA graph captures it) while the work follows the live keys;
+// a block past them writes nothing. The range's page ids are read once
+// into shared memory and its tiles stream through a three-stage ring of
+// 16-byte cp.async (zeros at the range's end; e4m3 rows as bytes, each
+// tile widened into one bf16 tile behind a __syncthreads, as
+// paged_tc_kernel does). Warp w takes keys 16 w .. 16 w + 15 of every
+// tile, S = Q.K^T and O += P.V as mma.sync m16n8k16 with (m, l, O) in its
+// registers, P rounded to bf16 for P.V. The four warps' (m, l, o) are
+// merged in warp order into the range's f32 partial (m in log2 units, l,
+// unnormalised o) for paged_merge_kernel_mma.
+template <int W, int DK, int DV, typename KV>
+__global__ void __launch_bounds__(kTcThreads)
+paged_split_kernel_mma(const bf16* __restrict__ q,
+                       const KV* __restrict__ k_pool,
+                       const KV* __restrict__ v_pool,
+                       const int* __restrict__ lens,
+                       const int* __restrict__ valids,
+                       const int* __restrict__ page_tables,
+                       float* __restrict__ ws_o, float* __restrict__ ws_ml,
+                       int hq, int hkv, int d, int dv, int npages,
+                       int blk_shift, int n_split, float scale_log2,
+                       int g_major) {
+  using Cfg = Tc<W>;
+  constexpr int kN = kMmaKeys;
+  constexpr bool kFp8 = sizeof(KV) == 1;
+  constexpr int kTiles = kFp8 ? 1 : kMmaStages;  // bf16 K/V tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (DK) d = DK;
+  if (DV) dv = DV;
+  const int sp = blockIdx.x % n_split;
+  const int g0 = blockIdx.x / n_split * kMmaRows;  // the M tile's first head
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int g = hq / hkv;
+  const int rows = min(kMmaRows, g - g0);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  // this block's range of the row's keys
+  const int len = row_len(lens, valids, b, npages << blk_shift);
+  const int per = row_cut(len, n_split) * kN;
+  const int k_lo = sp * per;
+  const int k_hi = min(k_lo + per, len);
+  if (k_hi <= k_lo) return;  // past the row's keys: the merge skips it
+  const int n_tiles = (k_hi - k_lo + kN - 1) / kN;
+  const int d16 = DK ? DK : (d + 15) & ~15;
+  const int dv16 = DV ? DV : (dv + 15) & ~15;
+  const int qs = d16 + 8;  // row strides in elements: +16 bytes
+  const int ks = d16 + 8;
+  const int vs = dv16 + 8;
+  const MmaLayout lay(d16, dv16, dv, kFp8, 0);
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw + lay.k_off);
+  bf16* sV = reinterpret_cast<bf16*>(smem_raw + lay.v_off);
+  unsigned char* sB8 = smem_raw + lay.b8_off;  // e4m3 bytes, the ring
+  int* sPid = reinterpret_cast<int*>(smem_raw + lay.pid_off);
+  float* sO = reinterpret_cast<float*>(smem_raw);  // [warp][row][dv]
+  float* sM = sO + 4 * kMmaRows * dv;               // [warp][row]
+  float* sL = sM + 4 * kMmaRows;
+  auto head = [&](int gi) { return g_major ? gi * hkv + kvh : kvh * g + gi; };
+  auto part = [&](int gi) {
+    return ((size_t)b * hq + head(gi)) * n_split + sp;
+  };
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const int blk_mask = (1 << blk_shift) - 1;
+  constexpr int kE = 16 / (int)sizeof(KV);  // elements per 16-byte chunk
+  const int nks = d16 >> 4;                 // k16 steps of this head
+  const int nvt = dv16 >> 3;                // n8 tiles of the output
+  const int gq = lane >> 2;                 // rows gq and gq + 8
+  const int tq = lane & 3;                  // columns 2 tq, 2 tq + 1
+  // A-operand address of this lane in the 16x16 Q tile: rows lane & 15,
+  // the upper 8 columns for lanes 16-31; B-operand addresses in this
+  // warp's 16 keys: K rows for S, V rows for P.V
+  const bf16* qa = sQ + (lane & 15) * qs + ((lane >> 4) << 3);
+  const int k_off = (warp * 16 + (lane & 7) + ((lane >> 4) << 3)) * ks +
+                    (((lane >> 3) & 1) << 3);
+  const int v_off = (warp * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * vs +
+                    ((lane >> 4) << 3);
+  // zero the 16-byte chunk that pads a row to a multiple of 16 elements
+  if (d & 15) {
+    for (int r = tid; r < kMmaRows + kTiles * kN; r += kTcThreads) {
+      bf16* row = r < kMmaRows ? sQ + r * qs : sK + (r - kMmaRows) * ks;
+      *reinterpret_cast<uint4*>(row + d) = zero;
+    }
+  }
+  if (dv & 15) {
+    for (int r = tid; r < kTiles * kN; r += kTcThreads)
+      *reinterpret_cast<uint4*>(sV + r * vs + dv) = zero;
+  }
+  // the M tile's Q rows, zeros past the group's last head
+  const int qc = d >> 3;  // 16-byte chunks per row
+  const bf16* qb = q + (size_t)b * hq * d;
+  for (int x = tid; x < kMmaRows * qc; x += kTcThreads) {
+    const int r = x / qc;
+    const int c = x - r * qc;
+    const bool ok = r < rows;
+    hop::cp16(sQ + r * qs + c * 8,
+              qb + (size_t)head(ok ? g0 + r : g0) * d + c * 8, ok);
+  }
+  // the page ids of the range's keys, read once
+  const int p0 = k_lo >> blk_shift;
+  const int n_pg = ((k_hi - 1) >> blk_shift) - p0 + 1;
+  const int* pt = page_tables + (size_t)b * npages + p0;
+  for (int x = tid; x < n_pg; x += kTcThreads) sPid[x] = pt[x];
+  __syncthreads();
+
+  // key tile j of the range into ring stage st: pool row of key ``key``
+  // is ((page id << blk_shift | key % blk) * hkv + kvh); zeros at k_hi
+  // and past it (never read: src is then the pool's first row); e4m3
+  // rows into the byte ring, rows of d then dv bytes
+  auto pool_row = [&](int key) {
+    return (((size_t)sPid[(key >> blk_shift) - p0] << blk_shift) |
+            (key & blk_mask)) * hkv + kvh;
+  };
+  auto stage = [&](int j, int st) {
+    const int kb = k_lo + j * kN;
+    const int kc = d / kE;
+    const int vc = dv / kE;
+    unsigned char* b8 = sB8 + (size_t)st * kN * (d + dv);
+    for (int x = tid; x < kN * kc; x += kTcThreads) {
+      const int t = x / kc;
+      const int c = x - t * kc;
+      const bool ok = kb + t < k_hi;
+      void* dst;
+      if constexpr (kFp8) {
+        dst = b8 + t * d + c * 16;
+      } else {
+        dst = sK + (st * kN + t) * ks + c * 8;
+      }
+      hop::cp16(dst, k_pool + (ok ? pool_row(kb + t) * d : 0) + c * kE,
+                ok);
+    }
+    for (int x = tid; x < kN * vc; x += kTcThreads) {
+      const int t = x / vc;
+      const int c = x - t * vc;
+      const bool ok = kb + t < k_hi;
+      void* dst;
+      if constexpr (kFp8) {
+        dst = b8 + kN * d + t * dv + c * 16;
+      } else {
+        dst = sV + (st * kN + t) * vs + c * 8;
+      }
+      hop::cp16(dst, v_pool + (ok ? pool_row(kb + t) * dv : 0) + c * kE,
+                ok);
+    }
+  };
+  // e4m3 only: ring stage st's bytes (landed, behind a __syncthreads)
+  // widened into the one bf16 K and V tile; zero bytes give zeros
+  auto widen = [&](int st) {
+    const unsigned char* b8 = sB8 + (size_t)st * kN * (d + dv);
+    const int kc = d >> 4;
+    const int vc = dv >> 4;
+    for (int x = tid; x < kN * kc; x += kTcThreads) {
+      const int t = x / kc;
+      const int c = x - t * kc;
+      widen16(sK + t * ks + c * 16, b8 + t * d + c * 16);
+    }
+    for (int x = tid; x < kN * vc; x += kTcThreads) {
+      const int t = x / vc;
+      const int c = x - t * vc;
+      widen16(sV + t * vs + c * 16, b8 + kN * d + t * dv + c * 16);
+    }
+  };
+  // groups 0 .. kMmaStages - 2: Q with tile 0, then the next tiles
+  // (empty groups past the range keep the count of groups fixed)
+#pragma unroll
+  for (int j = 0; j < kMmaStages - 1; ++j) {
+    if (j < n_tiles) stage(j, j);
+    hop::cp_commit();
+  }
+  hop::cp_wait<kMmaStages - 2>();
+  __syncthreads();
+
+  uint32_t qf[Cfg::kQRegs ? Cfg::kKSteps : 1][4];
+  if constexpr (Cfg::kQRegs) {
+#pragma unroll
+    for (int kk = 0; kk < Cfg::kKSteps; ++kk)
+      if (kk < nks) hop::ldsm4(qf[kk], qa + kk * 16);
+  }
+  float o[Cfg::kVTiles][4];
+#pragma unroll
+  for (int vt = 0; vt < Cfg::kVTiles; ++vt)
+    o[vt][0] = o[vt][1] = o[vt][2] = o[vt][3] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY};  // running max, log2 units
+  float l_r[2] = {0.f, 0.f};              // this lane's part of the sum
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j > 0) {
+      hop::cp_wait<kMmaStages - 2>();  // tile j is in
+      __syncthreads();  // for every thread; stage (j - 1) % 3 is free
+    }
+    if (j + kMmaStages - 1 < n_tiles)
+      stage(j + kMmaStages - 1, (j + kMmaStages - 1) % kMmaStages);
+    hop::cp_commit();
+    const int st = j % kMmaStages;
+    if constexpr (kFp8) {
+      widen(st);
+      __syncthreads();
+    }
+    const bf16* tK = sK + (kFp8 ? 0 : st) * kN * ks;
+    const bf16* tV = sV + (kFp8 ? 0 : st) * kN * vs;
+    const int kbase = k_lo + j * kN + warp * 16;  // this warp's first key
+    if (kbase >= k_hi) continue;  // no key of the range: nothing changes
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < Cfg::kKSteps; ++kk) {
+      if (kk < nks) {
+        uint32_t a[4];
+        if constexpr (Cfg::kQRegs) {
+          a[0] = qf[kk][0];
+          a[1] = qf[kk][1];
+          a[2] = qf[kk][2];
+          a[3] = qf[kk][3];
+        } else {
+          hop::ldsm4(a, qa + kk * 16);
+        }
+        uint32_t bk[4];
+        hop::ldsm4(bk, tK + k_off + kk * 16);
+        hop::mma_bf16(s[0], a, bk[0], bk[1]);
+        hop::mma_bf16(s[1], a, bk[2], bk[3]);
+      }
+    }
+    // scale to log2 units, keys at or past k_hi to -inf, row maxima
+    const bool edge = kbase + 16 > k_hi;
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[nt][e] * scale_log2;
+        if (edge && kbase + nt * 8 + 2 * tq + (e & 1) >= k_hi)
+          x = -INFINITY;
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float base[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      base[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+      const float corr = exp2f(m_r[r] - base[r]);
+      m_r[r] = mx[r];
+      l_r[r] *= corr;
+#pragma unroll
+      for (int vt = 0; vt < Cfg::kVTiles; ++vt) {
+        o[vt][2 * r] *= corr;
+        o[vt][2 * r + 1] *= corr;
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = exp2f(s[nt][e] - base[e >> 1]);
+        l_r[e >> 1] += s[nt][e];
+      }
+    }
+    // O += P.V: the two n8 score tiles are one k16 A operand, in bf16
+    const uint32_t a[4] = {
+        hop::pack_bf16(s[0][0], s[0][1]), hop::pack_bf16(s[0][2], s[0][3]),
+        hop::pack_bf16(s[1][0], s[1][1]), hop::pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+    for (int vt = 0; vt < Cfg::kVTiles; vt += 2) {
+      if (vt < nvt) {
+        uint32_t bv[4];
+        hop::ldsm4_t(bv, tV + v_off + vt * 8);
+        hop::mma_bf16(o[vt], a, bv[0], bv[1]);
+        hop::mma_bf16(o[vt + 1], a, bv[2], bv[3]);
+      }
+    }
+  }
+
+  // each warp's (m, l, o) over the ring, once every warp is done with it
+  hop::cp_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int wr = warp * kMmaRows + gq + 8 * r;
+    if (tq == 0) {
+      sM[wr] = m_r[r];
+      sL[wr] = l;
+    }
+#pragma unroll
+    for (int vt = 0; vt < Cfg::kVTiles; ++vt) {
+      if (vt < nvt && vt * 8 < dv)
+        *reinterpret_cast<float2*>(sO + wr * dv + vt * 8 + 2 * tq) =
+            make_float2(o[vt][2 * r], o[vt][2 * r + 1]);
+    }
+  }
+  __syncthreads();
+  // the range's partial per head: the warps that saw a key, merged in
+  // warp order (warp 0 always has one: the range starts at a tile)
+  for (int x = tid; x < rows * dv; x += kTcThreads) {
+    const int r = x / dv;
+    const int c = x - r * dv;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      if (sL[w * kMmaRows + r] > 0.f) M = fmaxf(M, sM[w * kMmaRows + r]);
+    float acc = 0.f;
+    float L = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float l = sL[w * kMmaRows + r];
+      if (l > 0.f) {
+        const float wt = exp2f(sM[w * kMmaRows + r] - M);
+        acc += wt * sO[(w * kMmaRows + r) * dv + c];
+        L += wt * l;
+      }
+    }
+    const size_t p = part(g0 + r);
+    ws_o[p * dv + c] = acc;
+    if (c == 0) {
+      ws_ml[2 * p] = M;
+      ws_ml[2 * p + 1] = L;
+    }
+  }
+}
+
+// Pass 2 of the tensor-core split decode: one block per (head h, row b),
+// merging row b's non-empty partials (ranges 0 .. ceil(tiles / per) - 1 of
+// ``row_cut``) in range order.
+__global__ void __launch_bounds__(splitk::kMergeThreads)
+paged_merge_kernel_mma(const float* __restrict__ ws_o,
+                       const float* __restrict__ ws_ml, bf16* __restrict__ out,
+                       const int* __restrict__ lens,
+                       const int* __restrict__ valids, int hq, int dv,
+                       int S, int n_split) {
+  extern __shared__ float sW[];  // n_split weights, then n_split sums
+  const int len = row_len(lens, valids, blockIdx.y, S);
+  const int per = row_cut(len, n_split);
+  const int tiles = (len + kMmaKeys - 1) / kMmaKeys;
+  splitk::merge<bf16, true, true>(ws_o, ws_ml, out, hq, dv, n_split, sW,
+                                  per ? (tiles + per - 1) / per : 0);
+}
+
+// split: the keys of a full-length row's range (the most a range holds),
+// a multiple of 64; n_split = ceil(ceil(npages * blk / 64) / (split / 64)).
+template <typename KV, int W, int DK = 0, int DV = 0>
+cudaError_t launch_split_mma(const void* q, const void* k_pool,
+                             const void* v_pool, const int* lens,
+                             const int* valids, const int* page_tables,
+                             void* out, float* ws_o, float* ws_ml, int b,
+                             int hq, int hkv, int d, int dv, int blk_shift,
+                             int npages, int split, float scale, int g_major,
+                             cudaStream_t stream) {
+  const int g = hq / hkv;
+  const int m_tiles = (g + kMmaRows - 1) / kMmaRows;
+  const int S = npages << blk_shift;
+  const int tiles = (S + kMmaKeys - 1) / kMmaKeys;
+  const int n_split = (tiles * kMmaKeys + split - 1) / split;
+  const size_t smem = MmaLayout((d + 15) & ~15, (dv + 15) & ~15, dv,
+                                sizeof(KV) == 1, split >> blk_shift).total;
+  cudaError_t e = hop::launch(
+      paged_split_kernel_mma<W, DK, DV, KV>, dim3(n_split * m_tiles, hkv, b),
+      kTcThreads, smem, stream, static_cast<const bf16*>(q),
+      static_cast<const KV*>(k_pool), static_cast<const KV*>(v_pool), lens,
+      valids, page_tables, ws_o, ws_ml, hq, hkv, d, dv, npages, blk_shift,
+      n_split, scale * 1.4426950408889634f, g_major);
+  if (e != cudaSuccess) return e;
+  return hop::launch(paged_merge_kernel_mma, dim3(hq, b),
+                     splitk::kMergeThreads,
+                     2 * (size_t)n_split * sizeof(float), stream, ws_o, ws_ml,
+                     static_cast<bf16*>(out), lens, valids, hq, dv, S,
+                     n_split);
+}
+
+template <typename KV>
+cudaError_t dispatch_split_mma(const void* q, const void* k_pool,
+                               const void* v_pool, const int* lens,
+                               const int* valids, const int* page_tables,
+                               void* out, float* ws_o, float* ws_ml, int b,
+                               int hq, int hkv, int d, int dv, int blk_shift,
+                               int npages, int split, float scale,
+                               int g_major, cudaStream_t st) {
+  const int w = std::max((d + 15) & ~15, (dv + 15) & ~15);
+#define SPLIT_MMA(...)                                                   \
+  return launch_split_mma<KV, __VA_ARGS__>(                              \
+      q, k_pool, v_pool, lens, valids, page_tables, out, ws_o, ws_ml, b, \
+      hq, hkv, d, dv, blk_shift, npages, split, scale, g_major, st)
+  if (d == dv && d == 256) SPLIT_MMA(256, 256, 256);  // gemma-2b
+  if (d == dv && d == 128) SPLIT_MMA(128, 128, 128);  // the benchmark's
+  if (w <= 64) SPLIT_MMA(64);
+  if (w <= 128) SPLIT_MMA(128);
+  SPLIT_MMA(256);
+#undef SPLIT_MMA
+}
+
 template <typename KV>
 cudaError_t dispatch_tc(const void* q, const void* k_pool,
                         const void* v_pool, const int* cache_lens,
@@ -781,9 +1238,13 @@ extern "C" int paged_prefill_attention(
 
 // q (b, 1, hq, d), out (b, 1, hq, dv). lens (b,) int32: the rows' lengths
 // (K2), or cache_lens when valids is not null (K1 at C = 1: length
-// max(cache_lens + valids, 1)). split is a multiple of blk; ws_o:
-// b * hq * n_split * dv floats, ws_ml: b * hq * n_split * 2 floats,
-// n_split = ceil(npages * blk / split). Other sizes as above.
+// max(cache_lens + valids, 1)). split: keys per range, a multiple of blk
+// (float32 q, the CUDA-core pass; n_split = ceil(npages * blk / split)), or
+// (bfloat16 q, the tensor cores) the keys of a full-length row's range, a
+// multiple of 64, n_split = ceil(ceil(npages * blk / 64) * 64 / split), a
+// shorter row's ranges cut from its own length. ws_o:
+// b * hq * n_split * dv floats, ws_ml: b * hq * n_split * 2 floats. Other
+// sizes as above.
 extern "C" int paged_decode_attention(
     int dtype, const void* q, const void* k_pool, const void* v_pool,
     const void* lens, const void* valids, const void* page_tables, void* out,
@@ -797,17 +1258,24 @@ extern "C" int paged_decode_attention(
   float* wml = static_cast<float*>(ws_ml);
   const int blk_shift = log2_blk(blk);
   cudaError_t e = cudaErrorInvalidValue;
-  if (blk_shift < 0 || split % blk) return static_cast<int>(e);
-#define SPLIT(T, KV)                                                          \
-  launch_split<T, KV>(q, k_pool, v_pool, ln, va, pt, out, wo, wml, b, hq,     \
-                      hkv, d, dv, blk_shift, npages, split, scale, g_major, st)
+  if (blk_shift < 0 || split % ((dtype & 1) ? kMmaKeys : blk))
+    return static_cast<int>(e);
+#define SPLIT(KV)                                                             \
+  launch_split<float, KV>(q, k_pool, v_pool, ln, va, pt, out, wo, wml, b, hq, \
+                          hkv, d, dv, blk_shift, npages, split, scale,        \
+                          g_major, st)
+#define SPLIT_MMA(KV)                                                      \
+  dispatch_split_mma<KV>(q, k_pool, v_pool, ln, va, pt, out, wo, wml, b,   \
+                         hq, hkv, d, dv, blk_shift, npages, split, scale, \
+                         g_major, st)
   switch (dtype) {
-    case 0: e = SPLIT(float, float); break;
-    case 1: e = SPLIT(bf16, bf16); break;
-    case 2: e = SPLIT(float, fp8); break;
-    case 3: e = SPLIT(bf16, fp8); break;
+    case 0: e = SPLIT(float); break;
+    case 1: e = SPLIT_MMA(bf16); break;
+    case 2: e = SPLIT(fp8); break;
+    case 3: e = SPLIT_MMA(fp8); break;
     default: break;
   }
 #undef SPLIT
+#undef SPLIT_MMA
   return static_cast<int>(e);
 }

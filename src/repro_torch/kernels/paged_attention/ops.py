@@ -6,15 +6,20 @@ the legacy loop's decode. On CUDA tensors each launches the hand-written
 kernels in ``csrc/paged_prefill_attention.cu`` (built with nvcc at first
 use) or raises; neither falls back. On CPU tensors each runs its plain
 version in ``ref``. Each call that launches adds one to the wrapper's own
-``launches`` count; a call of two passes (a split's partials, then their
+``launches`` count, and one to ``launches_by_route[route]`` (the route of
+``kernel_plan``; counted on eager calls and at a CUDA graph's capture, not
+on its replays); a call of two passes (a split's partials, then their
 merge) counts once.
 
-Which kernel a call takes follows from its shapes alone (``kernel_plan``):
-K2, and K1 at C = 1, split the keys over the pages (``decode_plan``), the
-same kernel and plan for both, so K2 with ``lens = cache_lens + 1`` equals
-K1 bit for bit on rows with ``valids = 1``; K1 at C > 1 runs 64-row tiles on
-the tensor cores in bf16, their key range split where the tiles alone
-leave SMs idle (``prefill_plan``), and the warp-per-row walk in float32.
+Which kernel a call takes follows from its shapes and dtype alone
+(``kernel_plan``): K2, and K1 at C = 1, split the keys over the pages
+(``decode_plan``), the same kernel and plan for both, so K2 with
+``lens = cache_lens + 1`` equals K1 bit for bit on rows with
+``valids = 1``: in bf16 on the tensor cores ("split_mma": the g q-heads of a
+kv head as one M tile, ranges cut from each row's own length on the device),
+in float32 on the CUDA cores ("split"); K1 at C > 1 runs 64-row tiles on the
+tensor cores in bf16, their key range split where the tiles alone leave SMs
+idle (``prefill_plan``), and the warp-per-row walk in float32.
 
 ``paged_prefill_attention_contig`` is the gathered-view twin (the reference's
 ``paged_prefill_attention_contig``): the same kernel over a contiguous
@@ -46,11 +51,17 @@ from repro_torch.kernels import launch, work
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.flash_attention.ref import BLOCK_M, key_tile
 from repro_torch.kernels.paged_attention.ref import (
-    paged_attention_ref, paged_prefill_attention_ref)
+    SPLIT_KEY_TILE, SPLIT_M_ROWS, paged_attention_ref,
+    paged_prefill_attention_ref)
 
 SOURCE = (Path(__file__).resolve().parent / "csrc"
           / "paged_prefill_attention.cu")
 BLOCK_SIZES = (8, 16)      # the kernel's page sizes
+# the tensor-core split decode (bf16 q at C = 1): page ids a range holds
+# in shared memory at most, and the shared memory an H100 SM gives its
+# blocks (228 KB, 1 KB a block reserved)
+MAX_RANGE_PAGES = 4096
+SM_SMEM_BYTES = 228 * 1024
 # C entry point -> (pointers, ints before scale, ints after scale)
 _SIGNATURES = {"paged_prefill_attention": (9, 9, 1),
                "paged_decode_attention": (9, 8, 1)}
@@ -70,11 +81,44 @@ def load_kernel(name: str = "paged_prefill_attention"):
 @functools.lru_cache(maxsize=256)   # every launch asks; the shapes are few
 def decode_plan(npages: int, blk: int, b: int, hq: int, hkv: int, d: int,
                 dv: int, es: int, n_sm: int):
-    """(split, n_split) of the split decode (K2; K1 at C = 1): ranges of
-    whole pages, enough for b * hkv * n_split blocks to fill ``n_sm`` SMs.
-    Shapes only, never the lengths."""
-    limit = da._max_split(hq // hkv, d, dv, es, align=blk, id_bytes=4)
-    return da.split_plan(npages * blk, b, hkv, n_sm, limit, align=blk)
+    """(split, n_split) of the split decode (K2; K1 at C = 1), from the
+    shapes only, never the lengths. ``es`` is q's element size.
+
+    4 (float32, the CUDA-core pass): ranges of ``split`` keys, whole pages,
+    n_split = ceil(npages * blk / split), enough for b * hkv * n_split
+    blocks to fill ``n_sm`` SMs, at most what fits shared memory.
+
+    2 (bf16, the tensor cores): n_split ranges per (row, kv head), enough
+    for b * hkv * m_tiles * n_split blocks (m_tiles = ceil(g / 16)) to give
+    every SM the blocks it holds at once (two at d 128, by
+    ``split_smem``), at most one per 64-key tile of the table and at most
+    ``MAX_RANGE_PAGES`` pages each. The kernel cuts each row's own tiles
+    into the n_split ranges (``ref.split_ranges``); ``split`` is a
+    full-length row's range in keys, the most a range holds."""
+    if es != 2:
+        limit = da._max_split(hq // hkv, d, dv, es, align=blk, id_bytes=4)
+        return da.split_plan(npages * blk, b, hkv, n_sm, limit, align=blk)
+    tiles = -(-npages * blk // SPLIT_KEY_TILE)
+    m_tiles = -(-(hq // hkv) // SPLIT_M_ROWS)
+    per_sm = SM_SMEM_BYTES // (split_smem(d, dv, blk, 0, False) + 1024)
+    want = max(n_sm * max(per_sm, 1) // (b * hkv * m_tiles), 1)
+    per = min(tiles // want, MAX_RANGE_PAGES * blk // SPLIT_KEY_TILE)
+    per = max(per, 1)                         # tiles a full row's range
+    return per * SPLIT_KEY_TILE, -(-tiles // per)
+
+
+def split_smem(d: int, dv: int, blk: int, split: int, fp8: bool) -> int:
+    """Shared memory of a block of the tensor-core split decode, as its
+    ``MmaLayout``: Q of one 16-row M tile, a three-stage ring of 64-key
+    bf16 K and V tiles (e4m3: one bf16 tile and the ring of bytes), the
+    warps' merge over them, then the page ids of a range of ``split``
+    keys."""
+    d16, dv16 = -(-d // 16) * 16, -(-dv // 16) * 16
+    tiles = 1 if fp8 else 3
+    ring = (16 * (d16 + 8) + tiles * 64 * (d16 + dv16 + 16)) * 2 \
+        + (3 * 64 * (d16 + dv16) if fp8 else 0)
+    merge = 4 * 16 * (dv + 2) * 4
+    return -(-max(ring, merge) // 16) * 16 + split // blk * 4
 
 
 @functools.lru_cache(maxsize=256)
@@ -102,8 +146,13 @@ def kernel_plan(q, k_pool, v_pool, page_tables) -> dict:
     if C == 1:
         split, n_split = decode_plan(npages, blk, b, hq, hkv, d, dv,
                                      q.element_size(), n_sm)
-        return {"route": "split", "split": split, "n_split": n_split,
-                "blocks": [n_split * hkv * b, b * hq]}
+        if q.dtype != torch.bfloat16:
+            return {"route": "split", "split": split, "n_split": n_split,
+                    "blocks": [n_split * hkv * b, b * hq]}
+        m_tiles = -(-(hq // hkv) // SPLIT_M_ROWS)
+        return {"route": "split_mma", "split": split, "n_split": n_split,
+                "key_tile": SPLIT_KEY_TILE,
+                "blocks": [n_split * m_tiles * hkv * b, b * hq]}
     if q.dtype != torch.bfloat16:
         rows = C * (hq // hkv)
         return {"route": "walk", "split": npages * blk, "n_split": 1,
@@ -199,7 +248,7 @@ def paged_prefill_attention(q, k_pool, v_pool, cache_lens, valids,
         work.lengths(valids, b, "valids"), C, hq, d, dv))
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     plan = kernel_plan(q, k_pool, v_pool, page_tables)
-    if plan["route"] == "split":
+    if C == 1:
         out = _split_decode(q, k_pool, v_pool, cache_lens, valids,
                             page_tables, scale, pairing, plan)
     else:
@@ -217,11 +266,18 @@ def paged_prefill_attention(q, k_pool, v_pool, cache_lens, valids,
                    plan["split"], float(scale), launch.PAIRINGS[pairing],
                    kv_dtype=k_pool.dtype)
     if q.device.type == "cuda":
-        paged_prefill_attention.launches += 1
+        _count(paged_prefill_attention, plan["route"])
     return out
 
 
+def _count(wrapper, route: str) -> None:
+    wrapper.launches += 1
+    wrapper.launches_by_route[route] = \
+        wrapper.launches_by_route.get(route, 0) + 1
+
+
 paged_prefill_attention.launches = 0
+paged_prefill_attention.launches_by_route = {}
 
 
 def paged_attention(q, k_pool, v_pool, lens, page_tables, *, scale=None,
@@ -248,14 +304,16 @@ def paged_attention(q, k_pool, v_pool, lens, page_tables, *, scale=None,
     work.add("K2", lambda: work.k2_flops(work.lengths(lens, b, "lens"), hq,
                                          d, dv))
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    plan = kernel_plan(q, k_pool, v_pool, page_tables)
     out = _split_decode(q, k_pool, v_pool, lens, None, page_tables, scale,
-                        pairing, kernel_plan(q, k_pool, v_pool, page_tables))
+                        pairing, plan)
     if q.device.type == "cuda":
-        paged_attention.launches += 1
+        _count(paged_attention, plan["route"])
     return out
 
 
 paged_attention.launches = 0
+paged_attention.launches_by_route = {}
 
 
 def paged_prefill_attention_contig(q, k_contig, v_contig, cache_lens, valids,

@@ -12,11 +12,15 @@ finite garbage and never NaN; the decode form masks with -inf, as the
 reference's does, and needs ``lens >= 1``.
 
 ``paged_attention_split_ref`` and ``paged_prefill_attention_tiled_ref`` are
-the walks the CUDA kernels run, in float32: key ranges of whole pages with
-per-range partials merged in order (K2, and K1 at C = 1), and 64-row M
-tiles over key tiles of whole pages with an online softmax in log2 units
-and P optionally rounded before P.V (K1 at C > 1). The kernels are held to
-them at tolerances tighter than to the plain versions."""
+the walks the CUDA kernels run, in float32: key ranges with per-range
+partials merged in order (K2, and K1 at C = 1: at float32 q ranges of whole
+pages from the shapes, on the CUDA cores; at bf16 q ranges of whole 64-key
+tiles cut from each row's own length (``split_ranges``), walked with four
+warps' online softmax in log2 units and P rounded before P.V, on the tensor
+cores), and 64-row M tiles over key tiles of whole pages with an online
+softmax in log2 units and P optionally rounded before P.V (K1 at C > 1).
+The kernels are held to them at tolerances tighter than to the plain
+versions."""
 from __future__ import annotations
 
 import math
@@ -30,6 +34,12 @@ from repro_torch.kernels.flash_attention.ref import BLOCK_M, key_tile
 from repro_torch.kernels.gqa import group_heads, ungroup_heads
 
 NEG_INF = -1e30
+# the tensor-core split decode (bf16 q at C = 1): keys per tile (whole
+# pages), warps of a block (each takes its own 16 keys of every tile), and
+# q-heads per M tile
+SPLIT_KEY_TILE = 64
+SPLIT_WARPS = 4
+SPLIT_M_ROWS = 16
 
 
 def gather_pages(pool: torch.Tensor, page_tables: torch.Tensor):
@@ -99,20 +109,103 @@ def paged_prefill_attention_ref(q, k_pool, v_pool, cache_lens, valids,
     return ungroup_heads(o, pairing).to(q.dtype)
 
 
+def split_ranges(lens, n_split: int, S: int):
+    """(k_lo, k_hi), each (b, n_split) int64: the keys [k_lo, k_hi) of each
+    row's ranges as the tensor-core split decode cuts them on the device.
+    The row's length (clamped to [0, S]) in whole ``SPLIT_KEY_TILE`` tiles
+    is cut into ``n_split`` ranges of ceil(tiles / n_split) tiles, in order;
+    the last range ends at the length, and ranges past it are empty
+    (k_hi <= k_lo)."""
+    tile = SPLIT_KEY_TILE
+    lens = torch.clamp(torch.as_tensor(lens).long(), 0, S)
+    per = (-(-lens // tile) + n_split - 1) // n_split
+    k_lo = (torch.arange(n_split, device=lens.device)[None]
+            * per[:, None] * tile)
+    k_hi = torch.minimum(k_lo + per[:, None] * tile, lens[:, None])
+    return k_lo, k_hi
+
+
+def _split_mma_walk(q, k, v, lens, n_split: int, scale, pairing, p_dtype):
+    """The tensor-core split decode over the gathered pages k (b, S, hkv,
+    d), v (b, S, hkv, dv), in float32: per (row, range of
+    ``split_ranges``), key tiles of ``SPLIT_KEY_TILE``, warp w walking keys
+    16 w .. 16 w + 15 of each with its own online softmax in log2 units
+    (keys past the range at -inf and their values zero, as the kernel's
+    copy fills them), P rounded to ``p_dtype`` before P.V and the sum
+    taking P unrounded; the warps that saw a key merged in warp order, then
+    the ranges' partials in range order. Returns (b, hq, dv) float32."""
+    b, S, hkv, d = k.shape
+    dv = v.shape[-1]
+    tile, warps = SPLIT_KEY_TILE, SPLIT_WARPS
+    scale_log2 = scale * math.log2(math.e)
+    dev = q.device
+    qg = group_heads(q[:, None], hkv, pairing)[:, 0].float()  # (b, hkv, g, d)
+    g = qg.shape[2]
+    kf = k.permute(0, 2, 1, 3).float()                         # (b, hkv, S, d)
+    vf = v.permute(0, 2, 1, 3).float()
+    k_lo, k_hi = split_ranges(lens, n_split, S)
+    n_tiles = -(-(k_hi - k_lo).clamp(min=0) // tile)          # (b, ranges)
+    ms, ls, os = [], [], []
+    for sp in range(k_lo.shape[1]):
+        m = torch.full((b, hkv, g, warps), float("-inf"), device=dev)
+        l = torch.zeros((b, hkv, g, warps), device=dev)
+        acc = torch.zeros((b, hkv, g, warps, dv), device=dev)
+        for j in range(int(n_tiles[:, sp].max())):
+            kpos = (k_lo[:, sp, None] + j * tile
+                    + torch.arange(tile, device=dev)[None])     # (b, tile)
+            live = kpos < k_hi[:, sp, None]
+            idx = torch.clamp(kpos, max=S - 1)[:, None, :, None]
+            kt = torch.gather(kf, 2, idx.expand(b, hkv, tile, d))
+            vt = torch.gather(vf, 2, idx.expand(b, hkv, tile, dv))
+            vt = torch.where(live[:, None, :, None], vt, 0.)
+            s = (qg @ kt.transpose(-1, -2)) * scale_log2     # (b, hkv, g, t)
+            s = torch.where(live[:, None, None], s, float("-inf"))
+            s = s.reshape(b, hkv, g, warps, tile // warps)
+            m_new = torch.maximum(m, s.amax(-1))
+            base = torch.where(torch.isinf(m_new), 0., m_new)
+            corr = torch.exp2(m - base)
+            p = torch.exp2(s - base[..., None])
+            l = l * corr + p.sum(-1)
+            p = p.to(p_dtype).float()
+            pv = torch.einsum("bhgwt,bhwtd->bhgwd", p,
+                              vt.reshape(b, hkv, warps, tile // warps, dv))
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        # the block's merge of its warps: weights exp2(m_w - M) over the
+        # warps with l_w > 0, in warp order
+        M = torch.where(l > 0, m, float("-inf")).amax(-1)
+        M = torch.where(torch.isinf(M), 0., M)
+        w = torch.where(l > 0, torch.exp2(m - M[..., None]), 0.)
+        ms.append(M)
+        ls.append((w * l).sum(-1))
+        os.append((w[..., None] * acc).sum(-2))
+    out = _merge_ranges(ms, ls, os)                            # (b,hkv,g,dv)
+    return ungroup_heads(out[:, None], pairing)[:, 0]
+
+
 def paged_attention_split_ref(q, k_pool, v_pool, lens, page_tables, *,
                               split: int, scale=None,
-                              pairing: str = "kv_major"):
-    """The split decode (K2, and K1 at C = 1) in plain PyTorch, in float32:
-    each row's npages * blk keys cut into ranges of ``split`` keys, whole
-    pages (``ops.decode_plan`` gives the kernel's), one partial (m, l, o)
-    per (row, q-head, range) over the range's keys below the row's length,
-    merged in range order. Arguments and result as ``paged_attention_ref``;
-    a row of length 0 gives zeros. The walk is K4's over the gathered
-    pages."""
-    return decode_attention_split_ref(
-        q, gather_pages(k_pool, page_tables),
-        gather_pages(v_pool, page_tables), lens, split=split, scale=scale,
-        pairing=pairing)
+                              pairing: str = "kv_major", p_dtype=None):
+    """The split decode (K2, and K1 at C = 1) in plain PyTorch, in float32,
+    with ``ops.decode_plan``'s ``split``. Without ``p_dtype`` (float32 q,
+    the CUDA-core pass): each row's npages * blk keys cut into ranges of
+    ``split`` keys, whole pages, one partial (m, l, o) per (row, q-head,
+    range) over the range's keys below the row's length, merged in range
+    order: K4's walk over the gathered pages. With ``p_dtype`` (bf16 q, the
+    tensor cores; torch.float32 leaves P unrounded): ceil(tiles /
+    ceil(split / 64)) ranges per row, cut from each row's own length
+    (``split_ranges``), walked as ``_split_mma_walk`` says. Arguments and
+    result as ``paged_attention_ref``; a row of length 0 gives zeros."""
+    k = gather_pages(k_pool, page_tables)
+    v = gather_pages(v_pool, page_tables)
+    if p_dtype is None:
+        return decode_attention_split_ref(q, k, v, lens, split=split,
+                                          scale=scale, pairing=pairing)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    tiles = -(-k.shape[1] // SPLIT_KEY_TILE)
+    per = -(-split // SPLIT_KEY_TILE)
+    return _split_mma_walk(q, k, v, lens, -(-tiles // per), scale, pairing,
+                           p_dtype).to(q.dtype)
 
 
 def _merge_ranges(ms, ls, os):
@@ -132,8 +225,9 @@ def paged_prefill_attention_tiled_ref(q, k_pool, v_pool, cache_lens, valids,
                                       scale=None, pairing: str = "kv_major",
                                       p_dtype=None):
     """K1's walks in plain PyTorch, in float32. At C = 1 the split decode
-    (``paged_attention_split_ref`` at length max(cache_lens + valids, 1);
-    ``p_dtype`` unused). At C > 1 the tensor-core walk: the rows of each
+    (``paged_attention_split_ref`` at length max(cache_lens + valids, 1),
+    on the tensor cores where ``p_dtype`` is given). At C > 1 the
+    tensor-core walk: the rows of each
     (b, kv head), chunk positions x the g q-heads of that kv head, cut into
     M tiles of BLOCK_M; each M tile's visible keys (below kv_len, at most
     its last position) cut into ranges of ``split`` keys (None: one range),
@@ -151,7 +245,7 @@ def paged_prefill_attention_tiled_ref(q, k_pool, v_pool, cache_lens, valids,
         lens = torch.clamp(cache_lens + valids, min=1).to(torch.int32)
         return paged_attention_split_ref(
             q[:, 0], k_pool, v_pool, lens, page_tables, split=split or S,
-            scale=scale, pairing=pairing)[:, None]
+            scale=scale, pairing=pairing, p_dtype=p_dtype)[:, None]
     dev = q.device
     g = hq // hkv
     rows = C * g

@@ -105,9 +105,10 @@ DENSE_DECODE_SHAPES = [(4, 100, 8, 1, 256, 256), (2, 64, 4, 2, 32, 32),
                        (2, 656, 32, 8, 128, 128)]
 DTYPES = [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)]
 # Against the plain versions that walk as the kernels do (the tiled flash
-# walk with P rounded to bf16, the split-K decode from the kernel's plan),
-# in float32 out: bf16 outputs are one rounding apart, at most half a bf16
-# ulp (2^-8 relative); K3 also flips a rare rounding of P.
+# walk with P rounded to bf16, the split-K decode from the kernel's plan,
+# in bf16 its tensor-core walk with P rounded), in float32 out: bf16
+# outputs are one rounding apart, at most half a bf16 ulp (2^-8
+# relative); K3 also flips a rare rounding of P.
 # K1 (tensor-core tiles at C > 1) as K3; K2 and K1 at C = 1 (the split
 # decode) as K4, but K1 keeps K3's looser bound at every C.
 TIGHT = {"K1": {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-3, 4e-3)},
@@ -123,6 +124,9 @@ def cuda():
     return torch.device("cuda")
 
 
+TENSOR_CORE_ROUTES = ("tensor_cores", "split_mma")
+
+
 def _k1_walk(args, pairing):
     """The walk K1 runs for these CUDA tensors (its plan's key ranges; P
     rounded to bf16 on the tensor cores), in float32."""
@@ -131,7 +135,7 @@ def _k1_walk(args, pairing):
     return ref.paged_prefill_attention_tiled_ref(
         q.float(), k.float(), v.float(), lens, vals, pt,
         split=plan["split"], pairing=pairing,
-        p_dtype=q.dtype if plan["route"] == "tensor_cores" else None)
+        p_dtype=q.dtype if plan["route"] in TENSOR_CORE_ROUTES else None)
 
 
 def _check_k1(args, pairing, dtype, tol):
@@ -187,7 +191,7 @@ def test_cuda_kernel_at_the_paths_shapes(cuda, b, C, npages, pairing):
             mixed_case(b, C, 8, 1, 256, 256, 16, npages, seed=b + C)]
     args[:3] = [x.to(torch.bfloat16) for x in args[:3]]
     plan = ops.kernel_plan(*args[:3], args[5])
-    assert plan["route"] == ("split" if C == 1 else "tensor_cores")
+    assert plan["route"] == ("split_mma" if C == 1 else "tensor_cores")
     _check_k1(args, pairing, torch.bfloat16, 1e-2)
 
 
@@ -229,6 +233,149 @@ def test_k2_equals_k1_at_c1(cuda, blk, pairing, dtype):
     assert torch.equal(k1[rows], k2[rows])
 
 
+# ------------------------- the tensor-core split decode (bf16, C = 1)
+
+def _split_inputs(dev, b, hq, hkv, d, dv, npages, lens, seed, blk=16,
+                  dtype=torch.bfloat16):
+    """q (b, 1, hq, d), pools over shuffled non-null pages, lens (b,) and
+    tables, drawn on the card (the cells' tables hold 512-1024 pages a
+    row)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nb = b * npages + 1
+    q = torch.randn((b, 1, hq, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((nb, blk, hkv, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((nb, blk, hkv, dv), generator=g, device=dev).to(dtype)
+    ids = torch.randperm(nb - 1, generator=g, device=dev)[: b * npages] + 1
+    return (q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev),
+            ids.reshape(b, npages).to(torch.int32))
+
+
+def _check_split(q, k, v, lens, pt, pairing, tol=1e-2):
+    """K2 and K1 (at cache_lens = lens - 1, valids 1) on the tensor-core
+    split route: against the plain version (rows of length 0: zeros) and
+    the walk it runs (TIGHT), equal bits on a second call and between K2
+    and K1, one launch a call counted under "split_mma"."""
+    plan = ops.kernel_plan(q, k, v, pt)
+    assert plan["route"] == "split_mma"
+    by_route = dict(ops.paged_attention.launches_by_route)
+    got = ops.paged_attention(q, k, v, lens, pt, pairing=pairing)
+    again = ops.paged_attention(q, k, v, lens, pt, pairing=pairing)
+    live = lens > 0
+    ones = torch.ones_like(lens)
+    k1 = ops.paged_prefill_attention(q, k, v, torch.clamp(lens - 1, min=0),
+                                     ones, pt, pairing=pairing)
+    walk = ref.paged_attention_split_ref(
+        q[:, 0].float(), k.float(), v.float(), lens, pt,
+        split=plan["split"], pairing=pairing, p_dtype=q.dtype)
+    torch.cuda.synchronize()
+    assert ops.paged_attention.launches_by_route.get("split_mma", 0) \
+        == by_route.get("split_mma", 0) + 2
+    assert torch.equal(got, again)
+    assert torch.equal(k1[live], got[live])
+    assert not got[~live].any()
+    want = ref.paged_attention_ref(q[live, 0], k, v, lens[live], pt[live],
+                                   pairing=pairing)
+    torch.testing.assert_close(got[live, 0].float(), want.float(), atol=tol,
+                               rtol=tol)
+    atol, rtol = TIGHT["K1"][torch.bfloat16]
+    torch.testing.assert_close(got[:, 0].float(), walk, atol=atol, rtol=rtol)
+    return got
+
+
+# (hq, hkv, npages, lengths): chatglm3-6b's decode cell (hq 32 / hkv 2,
+# 512 pages a row, lengths 1-5k) and starcoder2-7b's fleet (36 / 4, 1,024
+# pages, 1-3k), d 128, pages of 16, 16 rows
+SPLIT_CELLS = [(32, 2, 512, (1, 5000)), (36, 4, 1024, (1, 3000))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pairing", ["kv_major", "g_major"])
+@pytest.mark.parametrize("hq,hkv,npages,span", SPLIT_CELLS)
+def test_split_mma_at_the_cells_shapes(cuda, hq, hkv, npages, span,
+                                       pairing):
+    lens = np.random.default_rng(hq).integers(span[0], span[1] + 1, 16)
+    _check_split(*_split_inputs(cuda, 16, hq, hkv, 128, 128, npages,
+                                lens.tolist(), seed=hq), pairing)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dv", [(64, 64), (128, 128), (256, 256),
+                                  (64, 32), (128, 256), (40, 24)])
+@pytest.mark.parametrize("g", [1, 5, 8, 9, 16, 18])
+def test_split_mma_groups_and_head_dims(cuda, g, d, dv):
+    """Groups below, at and past one 16-row M tile (g 18: two), every head
+    dim the exact and general builds take, dv != d, rows padded to 16."""
+    lens = [1, 17, 64, 200, 0, 129]
+    _check_split(*_split_inputs(cuda, 6, 2 * g, 2, d, dv, 16, lens,
+                                seed=g * d + dv), "g_major")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blk", [8, 16])
+def test_split_mma_lengths(cuda, blk):
+    """Lengths at every edge of a page and a 64-key tile, a row past half
+    the table, and a ragged 1-5k batch, at chatglm3-6b's heads."""
+    rng = np.random.default_rng(blk)
+    lens = [0, 1, 15, 16, 17, 63, 64, 65, 4095] + \
+        rng.integers(1, 5001, 7).tolist()
+    _check_split(*_split_inputs(cuda, 16, 32, 2, 128, 128, 8192 // blk,
+                                lens, seed=blk, blk=blk), "g_major")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fp8", [False, True])
+def test_split_mma_graph_replay_follows_the_lengths(cuda, fp8):
+    """The grid comes from the shapes and the ranges from the lengths on
+    the device: a K2 and a K1 call captured in a CUDA graph, replayed
+    after the lengths change, give the eager calls' bits; the capture
+    counts one launch of "split_mma" per call."""
+    q, k, v, lens, pt = _split_inputs(cuda, 16, 32, 2, 128, 128, 512,
+                                      [4000] * 16, seed=5)
+    if fp8:
+        k, v = _fp8(k, v)
+    vals = torch.ones_like(lens)
+    cache = lens - 1
+    by_route = dict(ops.paged_prefill_attention.launches_by_route)
+    ops.paged_attention(q, k, v, lens, pt)               # warm, eager
+    ops.paged_prefill_attention(q, k, v, cache, vals, pt)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        k2 = ops.paged_attention(q, k, v, lens, pt)
+        k1 = ops.paged_prefill_attention(q, k, v, cache, vals, pt)
+    assert ops.paged_prefill_attention.launches_by_route["split_mma"] \
+        == by_route.get("split_mma", 0) + 2
+    rng = np.random.default_rng(7)
+    for new in (rng.integers(1, 5001, 16), [1] * 16, [8192] * 16):
+        lens.copy_(torch.tensor(new, dtype=torch.int32))
+        cache.copy_(lens - 1)
+        vals.copy_(torch.tensor(rng.integers(0, 2, 16), dtype=torch.int32))
+        graph.replay()
+        want2 = ops.paged_attention(q, k, v, lens, pt)
+        want1 = ops.paged_prefill_attention(q, k, v, cache, vals, pt)
+        torch.cuda.synchronize()
+        assert torch.equal(k2, want2) and torch.equal(k1, want1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv,npages,span", SPLIT_CELLS)
+def test_fp8_split_mma_equals_the_upcast_pools(cuda, hq, hkv, npages, span):
+    """e4m3 pools at the cells' heads give the bits of the same call on
+    the pools upcast to bf16 (their tiles widened exactly in shared
+    memory), K1 and K2 alike."""
+    lens = np.random.default_rng(hq + 1).integers(span[0], span[1] + 1, 16)
+    q, k, v, lens, pt = _split_inputs(cuda, 16, hq, hkv, 128, 128, npages,
+                                      lens.tolist(), seed=hq + 1)
+    k8, v8 = _fp8(k, v)
+    ku, vu = k8.to(torch.bfloat16), v8.to(torch.bfloat16)
+    vals = torch.ones_like(lens)
+    assert torch.equal(ops.paged_attention(q, k8, v8, lens, pt),
+                       ops.paged_attention(q, ku, vu, lens, pt))
+    assert torch.equal(
+        ops.paged_prefill_attention(q, k8, v8, lens - 1, vals, pt),
+        ops.paged_prefill_attention(q, ku, vu, lens - 1, vals, pt))
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_refuses_what_it_does_not_take(cuda):
     """The wrapper raises on a CUDA tensor it cannot launch on; it never
@@ -266,10 +413,11 @@ def test_paged_decode_kernel_matches_plain(cuda, shape, blk, pairing, dtype,
     got = ops.paged_attention(q, *args[1:], pairing=pairing)
     again = ops.paged_attention(q, *args[1:], pairing=pairing)
     want = ref.paged_attention_ref(*args, pairing=pairing)
-    split = ops.kernel_plan(q, args[1], args[2], args[4])["split"]
+    plan = ops.kernel_plan(q, args[1], args[2], args[4])
     walk = ref.paged_attention_split_ref(
         args[0].float(), args[1].float(), args[2].float(), *args[3:],
-        split=split, pairing=pairing)
+        split=plan["split"], pairing=pairing,
+        p_dtype=dtype if plan["route"] in TENSOR_CORE_ROUTES else None)
     torch.cuda.synchronize()
     assert ops.paged_attention.launches == before + 2
     assert torch.equal(got, again)
@@ -821,6 +969,32 @@ def test_flat_bucket_replay_equals_eager(cuda):
     for a, b in zip(graph.cache.full_pools(), eager.cache.full_pools()):
         assert torch.equal(a[:, 1:], b[:, 1:])
     assert graph.graph_stats()["first_calls"] == len(graph.bucket_set)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_compile_buckets_counts_k1_by_route(cuda, dtype):
+    """Each bucket's warm-up and capture count K1 under its route, one
+    launch a layer each: the decode bucket (C = 1) under "split_mma" in
+    bf16 and "split" in f32, the others under "tensor_cores" / "walk";
+    replays add to ``launches`` only."""
+    from repro_torch.serving import PagedInferenceEngine
+    cfg, params = _graph_model(cuda, dtype)
+    eng = PagedInferenceEngine(cfg, params, device=cuda, cuda_graphs=True,
+                               **GRAPH_KW)
+    before = dict(ops.paged_prefill_attention.launches_by_route)
+    eng.compile_buckets()
+    grew = {r: n - before.get(r, 0) for r, n in
+            ops.paged_prefill_attention.launches_by_route.items()
+            if n != before.get(r, 0)}
+    decode, wide = (("split_mma", "tensor_cores") if dtype == "bfloat16"
+                    else ("split", "walk"))
+    per_bucket = 2 * cfg.n_layers                  # warm-up, then capture
+    assert grew == {decode: per_bucket,
+                    wide: per_bucket * (len(eng.bucket_set) - 1)}
+    after = dict(ops.paged_prefill_attention.launches_by_route)
+    _graph_traffic(eng)
+    assert ops.paged_prefill_attention.launches_by_route == after
 
 
 @pytest.mark.gpu
